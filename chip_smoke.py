@@ -26,7 +26,14 @@ Phases, each printing one JSON line:
    and B=256, held to the CPU run (and at B=256 also to the dense oracle on
    the card), 64 hits per leg, fresh hit rows per batch;
 5. batched ``spread_device`` on a random graph, held to the CPU run;
-6. the ``kernels`` line: launches on the main path, errors and times.
+6. ``engine``: the engine's device funnel (``DeviceRecallEngine``) over a
+   store of 65,536 seeded memories written through the port's own storage
+   and embedded by its ``HashEmbedder``: ingest, the row mirrors' full build,
+   two incremental ingests each held bit for bit to a full rebuild,
+   ``recall_pool`` at the serving shapes (Q=1 and the polar Q=2), ``recall``
+   and ``recall_batch`` (B=32, 256), timed, and every method held to the same
+   engine over a CPU copy of the index;
+7. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
@@ -41,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -684,6 +692,349 @@ def phase_spread(n_nodes: int, n_edges: int, hops: int, seed: int, device="cuda"
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the engine's device funnel over the port's own store
+# ---------------------------------------------------------------------------
+
+ENGINE_MEMORIES = 1 << 16  # a heavy agent's store, one text row per memory
+ENGINE_MORE = 1024  # the incremental ingest after the first build
+ENGINE_MORE_IN_PLACE = 64  # a second one inside the grown capacity
+ENGINE_K = 10
+ENGINE_HITS = 64  # BM25 and graph memory ids per query
+ENGINE_TIMED = 200
+ENGINE_BATCHES = (32, 256)
+ENGINE_BATCH_GROUPS = 16  # timed recall_batch calls per batch size
+ENGINE_DENSITY = 1.2
+WORDS = tuple("""deploy cache latency kafka redis cluster migration database pottery
+painting mugs vase dog park trip flight hotel lisbon porto berlin tokyo meeting sprint
+standup review incident outage alert metric dashboard budget invoice contract client design
+sketch garden recipe dinner soccer guitar concert novel chapter lecture exam thesis visa
+passport birthday wedding gift coffee tea bike swim hike camera photo album song movie
+shelter rescue adopted kids weekend painted shoes eviction policy request coalescing freeze
+lifted evening waterfront layover booked anxious chewed lovely finished migrated enabled
+dropped blew ignored hospital doctor school teacher summer winter spring autumn morning
+night market bakery bread cheese pasta salad train ferry harbor museum gallery theater
+ticket""".split())
+NAMES = ("Melanie", "Caroline", "Dana", "Ravi", "Ana", "Jon", "Priya", "Omar", "Lena", "Tomas")
+CAUSAL = ("because", "due to", "since", "thanks to", "led to", "that's why")
+TAGS = ("ops", "travel", "incident", "standup", "conv-1", "family", "work")
+CITIES = ("Lisbon", "Porto", "Berlin", "Tokyo", "Paris", "Lagos")
+ENGINE_BASE = (2024, 1, 1)  # created_at spreads over two years from here
+TWO_YEARS_S = 2 * 365 * 86400
+
+
+def engine_now():
+    from datetime import datetime, timedelta, timezone
+
+    return datetime(*ENGINE_BASE, tzinfo=timezone.utc) + timedelta(seconds=TWO_YEARS_S + 86400)
+
+
+def make_memories(n: int, seed: int, first: int = 0, after_s: int = 0,
+                  span_s: int = TWO_YEARS_S) -> list:
+    """``n`` seeded memories of the port's ``Memory`` type: texts from a fixed
+    vocabulary (a quarter with a ``Name: `` speaker prefix, a sixth with a
+    causal marker, each with its number ``first + i`` so no two are equal),
+    tags with the auto-captured and assistant penalty tags on some, arousal,
+    credibility and importance from the seed, temporal refs and toponyms on
+    some, and created_at ``after_s`` to ``after_s + span_s`` seconds after
+    the base date (by default over two years)."""
+    from datetime import datetime, timedelta, timezone
+
+    from shodh_tpu_torch.types import Experience, Memory, deterministic_memory_id
+    from shodh_tpu_torch.utils.hashing import content_hash
+
+    r = np.random.default_rng(seed)
+    base = datetime(*ENGINE_BASE, tzinfo=timezone.utc)
+    lengths = r.integers(5, 25, n)
+    speaker, causal, auto, assistant, trefs, topo = (r.random((6, n)) < [[0.25], [1 / 6], [0.1],
+                                                                          [0.05], [0.15], [0.1]])
+    arousal, cred, imp = r.random((3, n))
+    created = after_s + r.integers(0, span_s, n)
+    out = []
+    for i in range(n):
+        words = list(r.choice(WORDS, lengths[i]))
+        if causal[i]:
+            words.insert(len(words) // 2, CAUSAL[i % len(CAUSAL)])
+        text = " ".join(words) + f" {first + i}"
+        if speaker[i]:
+            text = f"{NAMES[(first + i) % len(NAMES)]}: {text}"
+        tags = [TAGS[(first + i) % len(TAGS)]]
+        tags += ["auto-captured"] if auto[i] else []
+        tags += ["assistant-response"] if assistant[i] else []
+        at = base + timedelta(seconds=int(created[i]))
+        exp = Experience(content=text, tags=tags,
+                         temporal_refs=[at.date().isoformat()] if trefs[i] else [],
+                         toponyms=[CITIES[i % len(CITIES)]] if topo[i] else [])
+        exp.emotional.arousal = float(arousal[i])
+        exp.source.credibility = float(cred[i])
+        out.append(Memory(id=deterministic_memory_id(content_hash(text), at), experience=exp,
+                          created_at=at, importance=float(imp[i]), content_hash=content_hash(text)))
+    return out
+
+
+def ingest(holder, mems: list, seed: int, chunk: int = 4096) -> None:
+    """Embed with the holder's embedder, append to its index and flush it
+    onto the device, then store the memories with their rows inside one
+    transaction, and record feedback momentum on 1% of them."""
+    r = np.random.default_rng(seed)
+    index, storage = holder.index, holder.storage
+    rows = []
+    for lo in range(0, len(mems), chunk):
+        texts = [m.experience.content for m in mems[lo:lo + chunk]]
+        rows += index.add(holder.embedder.encode_batch(texts))
+    index.flush()
+    index._device_arrays()
+    with storage.kv.transaction():
+        for m, row in zip(mems, rows):
+            m.vector_row = row
+            storage.store(m)
+            storage.set_vector_rows(m.id, [row])
+        for i in np.flatnonzero(r.random(len(mems)) < 0.01):
+            holder.feedback.record(mems[i].id, float(r.random() * 2 - 1), engine_now())
+
+
+def engine_holder(root, device):
+    """The engine's ``system``: an empty store under ``root``, its feedback,
+    the hash embedder and an f32 index on ``device``; no BM25, graph or query
+    parser (the legs come in as memory-id scores)."""
+    from types import SimpleNamespace
+
+    from shodh_tpu_torch.constants import FLAT_CONSENSUS
+    from shodh_tpu_torch.engine.feedback import FeedbackStore
+    from shodh_tpu_torch.index.device_index import DeviceVectorIndex
+    from shodh_tpu_torch.models.hash_embedder import HashEmbedder
+    from shodh_tpu_torch.storage.store import MemoryStorage
+
+    storage = MemoryStorage(root)
+    return SimpleNamespace(index=DeviceVectorIndex(DIM, "float32", device=device), storage=storage,
+                           feedback=FeedbackStore(storage.kv), embedder=HashEmbedder(),
+                           bm25=None, graph=None, query_parser=None,
+                           _store_consensus=lambda: FLAT_CONSENSUS)
+
+
+def pool_calls(holder, ids: list, n: int, polar: bool, seed: int, k: int = ENGINE_K) -> list:
+    """``n`` recall_pool calls at the serving shapes of the JAX package's
+    ``MemorySystem._device_funnel_recall``: pool_k = 3k, pool_size 256,
+    vec_k = 2 pool_k (twice that for the polar Q=2 form), 64 BM25 and 64
+    graph memory ids per query; the query shapes cycle through plain,
+    speaker, temporal (with a date range), where and why."""
+    from datetime import timedelta
+
+    from shodh_tpu_torch import constants as C
+
+    r = np.random.default_rng(seed)
+    now = engine_now()
+    pool_k = k * C.VECTOR_SEARCH_CANDIDATE_MULTIPLIER
+    calls = []
+    for j in range(n):
+        text = " ".join(r.choice(WORDS, 4))
+        qvecs = [holder.embedder.encode_query(text)]
+        if polar:
+            qvecs.append(holder.embedder.encode_query("not " + text))
+        bm25 = {ids[i]: float(v) for i, v in zip(r.choice(len(ids), ENGINE_HITS, replace=False),
+                                                 r.random(ENGINE_HITS) * 8)}
+        graph = {ids[i]: float(v) for i, v in zip(r.choice(len(ids), ENGINE_HITS, replace=False),
+                                                  r.random(ENGINE_HITS))}
+        shape = j % 5
+        dated = shape == 2
+        calls.append(((qvecs, bm25, graph), {
+            "q_entities": [NAMES[j % len(NAMES)]] if shape == 1 else [],
+            "seek_temporal": dated, "where_question": shape == 3, "causal_question": shape == 4,
+            "date_range": (now - timedelta(days=30), now - timedelta(days=20)) if dated else None,
+            "tmatch_boost": 0.1 if dated else 0.0,
+            "recency_scale": 0.0 if dated else C.RECENCY_BOOST_SCALE,
+            "density": ENGINE_DENSITY,
+            "pool_size": 1 << (max(256, 4 * pool_k) - 1).bit_length(),
+            "vec_k": 2 * pool_k * (C.POLAR_QUERY_VECTOR_POOL_MULTIPLIER if polar else 1),
+            "now": now,
+        }))
+    return calls
+
+
+def query_texts(n: int, seed: int) -> list[str]:
+    r = np.random.default_rng(seed)
+    return [" ".join(r.choice(WORDS, 4)) for _ in range(n)]
+
+
+def _timed(fn, items) -> list[float]:
+    times = []
+    for it in items:
+        t0 = time.perf_counter()
+        fn(it)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def same_hits(name: str, got: list, want: list, rtol: float = 1e-5, atol: float = 1e-7) -> None:
+    """Engine outputs equal: the same memory ids in the same order, every
+    value within ``rtol`` (with an absolute floor ``atol`` for values near 0:
+    f32 dots summed in another order), and the same ``None`` pattern."""
+    if [h[0] for h in got] != [h[0] for h in want]:
+        raise AssertionError(f"{name}: memory ids differ")
+    for a, b in zip(got, want):
+        for x, y in zip(a[1:], b[1:]):
+            if (x is None) != (y is None):
+                raise AssertionError(f"{name}: None pattern differs at {a[0]}")
+            if x is not None and not abs(x - y) <= atol + rtol * abs(y):
+                raise AssertionError(f"{name}: {x} vs {y} at {a[0]}")
+
+
+def timed_calls(obj, name: str) -> list:
+    """Count the calls of ``obj.name`` and their host seconds (an instance
+    attribute shadows the method); returns the [calls, seconds] pair."""
+    fn, acc = getattr(obj, name), [0, 0.0]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[0] += 1
+            acc[1] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+    return acc
+
+
+def _mirror_snapshot(mirrors: dict) -> dict:
+    return {k: v.clone() for k, v in mirrors.items()}
+
+
+def _mirrors_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k].to(a[k].device)) for k in a)
+
+
+def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
+                 n_in_place=ENGINE_MORE_IN_PLACE, n_timed=ENGINE_TIMED, batches=ENGINE_BATCHES,
+                 n_checked=4, seed=SEED) -> tuple[dict, object]:
+    """The engine's device funnel (``DeviceRecallEngine``) over a store of
+    ``n`` memories written under ``root`` through the port's own storage:
+    ingest, the full mirror build, two incremental ingests (the first grows
+    the capacity, the second fits inside it) each held bit for bit to a full
+    rebuild, ``recall_pool`` at the serving shapes (Q=1 and the polar Q=2),
+    ``recall`` and ``recall_batch``; on the card each timed, and every method
+    held to the same engine over a CPU copy of the index. Returns (record,
+    the holder)."""
+    from pathlib import Path
+
+    from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
+    from shodh_tpu_torch.index.device_index import DeviceVectorIndex
+
+    on_card = str(device).startswith("cuda")
+    root = Path(root)
+    holder = engine_holder(root, device)
+    engine = DeviceRecallEngine(holder)
+    rec = {"phase": "engine", "memories": n, "more": n_more, "more_in_place": n_in_place,
+           "dim": DIM, "k": ENGINE_K, "hits_per_leg": ENGINE_HITS}
+
+    mems = make_memories(n, seed)
+    t0 = time.perf_counter()
+    ingest(holder, mems, seed + 1)
+    _sync(device)
+    rec["ingest_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mirrors = engine.mirrors()
+    _sync(device)
+    rec["mirror_first_build_s"] = time.perf_counter() - t0
+    if mirrors["importance"].device.type != holder.index.device.type:
+        raise AssertionError("mirrors are not on the index's device")
+    ids = [m.id for m in mems]
+    (args, kwargs), = pool_calls(holder, ids, 1, False, seed + 2)
+    t0 = time.perf_counter()
+    engine.recall_pool(*args, **kwargs)
+    rec["first_pool_s"] = time.perf_counter() - t0
+
+    # incremental ingests (memories of the last day), each held to a full
+    # rebuild on the device; a full rebuild is the one caller of the store's
+    # iter_memories, which is counted to show the incremental path ran
+    scans = timed_calls(holder.storage, "iter_memories")
+    for step, count in (("incremental", n_more), ("incremental_in_place", n_in_place)):
+        more = make_memories(count, seed + 3 + len(mems), first=len(mems),
+                             after_s=TWO_YEARS_S, span_s=86400)
+        cap = holder.index.capacity
+        prev = engine.mirrors()
+        ingest(holder, more, seed + 4 + len(mems))
+        mems += more
+        scans[0] = 0
+        t0 = time.perf_counter()
+        grown = engine.mirrors()
+        _sync(device)
+        rec[f"mirror_{step}_s"] = time.perf_counter() - t0
+        if scans[0]:
+            raise AssertionError(f"{step}: append-only growth took the full rebuild")
+        grew = rec[f"{step}_grew_capacity"] = holder.index.capacity != cap
+        if not grew and any(grown[k] is not prev[k] for k in prev):
+            raise AssertionError(f"{step}: growth inside the capacity uploaded the mirrors anew")
+        incremental = _mirror_snapshot(grown)
+        engine.invalidate()
+        t0 = time.perf_counter()
+        full = engine.mirrors()
+        _sync(device)
+        rec.setdefault("mirror_build_s", time.perf_counter() - t0)
+        if not _mirrors_equal(incremental, full):
+            raise AssertionError(f"{step} mirrors differ from a full rebuild")
+        if grown["importance"] is full["importance"]:
+            raise AssertionError("invalidate() did not rebuild the mirrors")
+    again = engine.mirrors()
+    if any(again[k] is not full[k] for k in full):
+        raise AssertionError("a call with no write uploaded the mirrors again")
+    rec["mirrors_checked"] = list(full)
+    rec["rows"] = len(holder.index)
+    rec["capacity"] = holder.index.capacity
+
+    ids = [m.id for m in mems]
+    forms = {"pool_q1": pool_calls(holder, ids, n_timed + n_checked, False, seed + 5),
+             "pool_q2": pool_calls(holder, ids, n_timed + n_checked, True, seed + 6)}
+    texts = query_texts(max(n_timed, max(batches) * ENGINE_BATCH_GROUPS) + n_checked, seed + 7)
+    now = engine_now()
+    if on_card:
+        for name, calls in forms.items():
+            engine.recall_pool(*calls[-1][0], **calls[-1][1])  # warm
+            times = _timed(lambda c: engine.recall_pool(*c[0], **c[1]), calls[:n_timed])
+            rec[f"{name}_ms"] = ms_stats(times)
+        engine.recall(texts[-1], ENGINE_K, now)
+        rec["recall_ms"] = ms_stats(_timed(lambda t: engine.recall(t, ENGINE_K, now),
+                                           texts[:n_timed]))
+        for b in batches:
+            groups = [texts[i * b:(i + 1) * b] for i in range(ENGINE_BATCH_GROUPS)]
+            engine.recall_batch(groups[0], ENGINE_K, now)
+            stats = ms_stats(_timed(lambda g: engine.recall_batch(g, ENGINE_K, now), groups))
+            rec[f"recall_batch_b{b}_ms"] = stats
+            rec[f"recall_batch_b{b}_ms_per_query"] = stats["mean"] / b
+
+    # the same engine over a CPU copy of the index and the same store
+    from types import SimpleNamespace
+
+    holder.index.save(root / "index" / "text")
+    cpu_holder = SimpleNamespace(**{**vars(holder), "index": DeviceVectorIndex.load(
+        root / "index" / "text", device="cpu")})
+    cpu_engine = DeviceRecallEngine(cpu_holder)
+    if not _mirrors_equal(cpu_engine.mirrors(), {k: v.cpu() for k, v in engine.mirrors().items()}):
+        raise AssertionError("mirrors differ between the device and the CPU")
+    checked = {"pool_q1": 0, "pool_q2": 0, "recall": 0, "recall_batch": 0, "pool_none": 0}
+    for name, calls in forms.items():
+        for args, kwargs in calls[n_timed:]:
+            got = engine.recall_pool(*args, **kwargs)
+            same_hits(f"{name} vs CPU", got, cpu_engine.recall_pool(*args, **kwargs))
+            checked[name] += 1
+            checked["pool_none"] += sum(c is None for _, _, c in got)
+    for t in texts[-n_checked:]:
+        same_hits("recall vs CPU", engine.recall(t, ENGINE_K, now),
+                  cpu_engine.recall(t, ENGINE_K, now))
+        checked["recall"] += 1
+    group = texts[-n_checked:]
+    for got, want in zip(engine.recall_batch(group, ENGINE_K, now),
+                         cpu_engine.recall_batch(group, ENGINE_K, now)):
+        same_hits("recall_batch vs CPU", got, want)
+        checked["recall_batch"] += 1
+    rec["checked_vs_cpu"] = checked
+    return rec, holder
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -744,6 +1095,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit(phase_spread(100_000, 1 << 20, 3, SEED + 5))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        rec_engine, holder = phase_engine(tmp)
+        rec_engine["launches"] = read_launches()  # none of K1-K3 lies on this path
+        holder.storage.close()
+    emit(rec_engine)
+    del holder
+    torch.cuda.empty_cache()
 
     emit({"kernels": [
         {"name": "groupmax", "route": "cuda", "source": "shodh_tpu_torch/ops/csrc/groupmax.cu",

@@ -29,8 +29,26 @@ PORT_MODULES = [
     "shodh_tpu_torch.ops.device_recall",
     "shodh_tpu_torch.index.device_index",
     "shodh_tpu_torch.graph.device_spreading",
+    "shodh_tpu_torch.types",
+    "shodh_tpu_torch.utils.hashing",
+    "shodh_tpu_torch.utils.clock",
+    "shodh_tpu_torch.utils.geohash",
+    "shodh_tpu_torch.storage.serialization",
+    "shodh_tpu_torch.storage.kv",
+    "shodh_tpu_torch.storage.store",
+    "shodh_tpu_torch.engine.feedback",
+    "shodh_tpu_torch.engine.scoring",
+    "shodh_tpu_torch.engine.decay",
+    "shodh_tpu_torch.engine.device_funnel",
+    "shodh_tpu_torch.nlp.normalize",
+    "shodh_tpu_torch.nlp.norms",
+    "shodh_tpu_torch.nlp.lemmas",
+    "shodh_tpu_torch.nlp.stemmer",
+    "shodh_tpu_torch.models.hash_embedder",
+    "shodh_tpu_torch.models.embedder",
     "chip_smoke",
 ]
+_ABSENT = ("jax", "shodh_tpu", "msgpack")  # never imported by a port process
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+shodh_tpu(\.|\s*$|\s*,|\s+as\b)"
     r"|from\s+shodh_tpu(\.|\s+import\b))",
@@ -45,12 +63,21 @@ def _port_sources():
     return files
 
 
+def test_every_port_module_is_listed():
+    """The subprocess check below imports every module of the package."""
+    found = {".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+             for p in (ROOT / "shodh_tpu_torch").rglob("*.py")}
+    subpackages = {m for m in found if (ROOT / m.replace(".", "/") / "__init__.py").exists()}
+    assert found - subpackages - {"shodh_tpu_torch"} <= set(PORT_MODULES)
+    assert {"shodh_tpu_torch.storage", "shodh_tpu_torch.engine", "shodh_tpu_torch.nlp",
+            "shodh_tpu_torch.models", "shodh_tpu_torch.utils"} <= subpackages
+
+
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'shodh_tpu')\n"
-        "             or m.startswith(('jax.', 'shodh_tpu.')))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_ABSENT!r})\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
@@ -74,6 +101,15 @@ def test_forbidden_pattern_catches_reference_imports():
         assert _FORBIDDEN.search(line), line
     for line in ("import shodh_tpu_torch", "from shodh_tpu_torch.ops import distance"):
         assert not _FORBIDDEN.search(line), line
+    assert _MSGPACK.search("import msgpack") and _MSGPACK.search("    from msgpack import packb")
+
+
+_MSGPACK = re.compile(r"^\s*(import|from)\s+msgpack\b", re.M)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_port_source_has_no_msgpack_import(path):
+    assert not _MSGPACK.findall(path.read_text()), path
 
 
 def _port_names():

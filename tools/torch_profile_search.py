@@ -9,10 +9,15 @@ and an int8 one on the certified path (``SHODH_TOPK_IMPL=xla``, K2 kernel).
 The int8 index is also searched under certificate v4 (``SHODH_TOPK_V4=1``)
 in its default form (su=32) and with ``SHODH_TOPK_V4_IMPL=kernel`` (su=128),
 both through the K3 kernel; then the pool program (Q=1) and the
-batched funnel (B=256, 64 hits per leg, k=10) run on its tensors. For each
-cell it times
-``--reps`` warm calls (host clock around work that ends in a synchronize)
-and profiles the same calls with ``torch.profiler``. One JSON line per cell:
+batched funnel (B=256, 64 hits per leg, k=10) run on its tensors. Last, the
+cell ``engine_pool``: ``chip_smoke.py``'s engine store (its 65,536 seeded
+memories through the port's storage and hash embedder) and the
+engine's ``DeviceRecallEngine.recall_pool`` at the serving shapes (Q=1, k=10,
+pool_size 256, vec_k 60, 64 BM25 and 64 graph memory ids per call, a new
+query each call). For each cell it times ``--reps`` warm calls
+(``ENGINE_REPS`` for ``engine_pool``; host clock around work that ends in a
+synchronize) and profiles the same calls with ``torch.profiler``. One JSON
+line per cell:
 
 - ``wall_ms``: per call, unprofiled;
 - ``device_busy_ms``: per call, the union of the device's kernel and copy
@@ -20,7 +25,10 @@ and profiles the same calls with ``torch.profiler``. One JSON line per cell:
 - ``idle_share``: 1 - busy / profiled wall time;
 - ``top``: device time per call by kernel name, largest first;
 - ``host_top``: the aten ops with the most host time per call (name, calls
-  per call, self CPU ms), largest first.
+  per call, self CPU ms), largest first;
+- ``engine_pool`` only, ``row_maps``: per call, the store's row-map lookups
+  (``get_vector_map`` for the legs' memory ids, ``memory_for_row`` for the
+  pool's rows), with their count and host ms.
 
 Needs one CUDA device; exits non-zero without one.
 """
@@ -28,8 +36,10 @@ Needs one CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -86,6 +96,40 @@ def profile(fn, reps: int) -> dict:
     }
 
 
+# Each engine_pool call serves a new query with new legs, cycling through five
+# query shapes, and its time is mostly host work whose row-map cache hits vary
+# from call to call: 32 calls take every shape six times or more, where the
+# other cells repeat one call and 8 suffice.
+ENGINE_REPS = 32
+
+
+def profile_engine_pool(cs) -> dict:
+    """The ``engine_pool`` cell: recall_pool over the engine phase's store."""
+    from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        holder = cs.engine_holder(tmp, "cuda")
+        mems = cs.make_memories(cs.ENGINE_MEMORIES, cs.SEED)
+        cs.ingest(holder, mems, cs.SEED + 1)
+        engine = DeviceRecallEngine(holder)
+        engine.mirrors()
+        calls = itertools.cycle(cs.pool_calls(holder, [m.id for m in mems], 64, False, cs.SEED + 5))
+        maps = {name: cs.timed_calls(holder.storage, name)
+                for name in ("get_vector_map", "memory_for_row")}
+        n_calls = [0]
+
+        def run():
+            args, kwargs = next(calls)
+            engine.recall_pool(*args, **kwargs)
+            n_calls[0] += 1
+
+        rec = profile(run, ENGINE_REPS)
+        rec["row_maps"] = {name: {"calls": c / n_calls[0], "ms": t * 1e3 / n_calls[0]}
+                           for name, (c, t) in maps.items()}
+        holder.storage.close()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -137,6 +181,8 @@ def main() -> int:
                  batch=cs.BATCH, k=cs.K, hits_per_leg=cs.BATCH_HITS)
         del index
         torch.cuda.empty_cache()
+    emit("engine_pool", profile_engine_pool(cs), rows=cs.ENGINE_MEMORIES, queries=1,
+         k=cs.ENGINE_K, pool_size=256, vec_k=60, hits_per_leg=cs.ENGINE_HITS)
     return 0
 
 
