@@ -5,9 +5,10 @@
 
 Phases, each printing one JSON line:
 
-0. set-up: the card's name and power limit (nvidia-smi), and the build of
-   the three CUDA kernels from ``shodh_tpu_torch/ops/csrc`` into
-   ``build/torch_kernels/``;
+0. set-up: the card's name and power limit (nvidia-smi), the build of the
+   three CUDA kernels from ``shodh_tpu_torch/ops/csrc`` into
+   ``build/torch_kernels/`` and, beside it, of the native BM25 scorer
+   (``shodh_tpu_torch/retrieval/csrc``, g++) into ``build/torch_native/``;
 1. each kernel against its plain PyTorch version on the card at serving
    shapes (B=256, N=2^20, D=384; K3 at su=128 and su=32), with kernel, plain
    and library-call times and the card's least time for the same work (bound);
@@ -27,13 +28,21 @@ Phases, each printing one JSON line:
    the card), 64 hits per leg, fresh hit rows per batch;
 5. batched ``spread_device`` on a random graph, held to the CPU run;
 6. ``engine``: the engine's device funnel (``DeviceRecallEngine``) over a
-   store of 65,536 seeded memories written through the port's own storage
-   and embedded by its ``HashEmbedder``: ingest, the row mirrors' full build,
-   two incremental ingests each held bit for bit to a full rebuild,
-   ``recall_pool`` at the serving shapes (Q=1 and the polar Q=2), ``recall``
-   and ``recall_batch`` (B=32, 256), timed, and every method held to the same
+   store of 65,536 seeded conversation turns written through the port's own
+   storage, embedded by its ``HashEmbedder`` and ingested into BM25 and the
+   entity graph (1-5 Zipf-drawn entities each): ingest, the row mirrors'
+   full build, two incremental ingests each held bit for bit to a full
+   rebuild, ``recall_pool`` at the serving shapes (Q=1 and the polar Q=2,
+   synthetic legs), ``recall`` and ``recall_batch`` (B=32, 256; real legs),
+   timed, and every method held to the same engine over a CPU copy of the
+   index;
+7. ``legs``: 200 ``device_funnel_pool`` calls over the same store (query
+   analysis, the graph leg through ``DeviceSpreader`` on the card, the BM25
+   leg through the native scorer, the pool program), with per-stage times,
+   the spreads' device time, the export's rebuild, the row-map lookups and
+   their LRU misses; every spread held to a CPU export and every pool to the
    engine over a CPU copy of the index;
-7. the ``kernels`` line: launches on the main path, errors and times.
+8. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
@@ -43,8 +52,11 @@ against the JAX package).
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import functools
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -97,7 +109,14 @@ def env(**values):
                 os.environ[k] = v
 
 
+_START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    """Print one JSON line; a phase's line also carries the script's seconds
+    so far (``elapsed_s``), which show where the time limit goes."""
+    if "phase" in record:
+        record = {**record, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(record), flush=True)
 
 
@@ -700,9 +719,12 @@ ENGINE_MORE = 1024  # the incremental ingest after the first build
 ENGINE_MORE_IN_PLACE = 64  # a second one inside the grown capacity
 ENGINE_K = 10
 ENGINE_HITS = 64  # BM25 and graph memory ids per query
-ENGINE_TIMED = 200
+ENGINE_TIMED = 200  # timed recall_pool calls per form, with synthetic legs
+# recall and recall_batch serve real BM25 and graph legs, whose graph legs
+# reach tens of thousands of memories through the Zipf hubs: fewer timed calls
+ENGINE_RECALL_TIMED = 32
 ENGINE_BATCHES = (32, 256)
-ENGINE_BATCH_GROUPS = 16  # timed recall_batch calls per batch size
+ENGINE_BATCH_GROUPS = 1  # timed recall_batch calls per batch size
 ENGINE_DENSITY = 1.2
 WORDS = tuple("""deploy cache latency kafka redis cluster migration database pottery
 painting mugs vase dog park trip flight hotel lisbon porto berlin tokyo meeting sprint
@@ -720,6 +742,38 @@ TAGS = ("ops", "travel", "incident", "standup", "conv-1", "family", "work")
 CITIES = ("Lisbon", "Porto", "Berlin", "Tokyo", "Paris", "Lagos")
 ENGINE_BASE = (2024, 1, 1)  # created_at spreads over two years from here
 TWO_YEARS_S = 2 * 365 * 86400
+# Each memory names 1-5 entities drawn Zipf-like (s = 1.1) from a fixed
+# vocabulary of made-up names: by rank, two in six are people and one in six
+# a place (capitalized), the rest lowercase concepts
+ENTITY_VOCAB = 8192
+ENTITY_ZIPF_S = 1.1
+ENTITY_SEED = 4099
+_SYLLABLES = tuple(c + v for c in "bdfgklmnprstvz" for v in "aeiou")
+
+
+@functools.cache
+def entity_vocab() -> tuple[list[str], dict[str, str], np.ndarray]:
+    """The entity names in rank order, their labels, and the Zipf weights."""
+    r = np.random.default_rng(ENTITY_SEED)
+    names, seen = [], set()
+    while len(names) < ENTITY_VOCAB:
+        word = "".join(r.choice(_SYLLABLES, 3))
+        if word not in seen:
+            seen.add(word)
+            names.append(word)
+    labels = {}
+    for i, w in enumerate(names):
+        label = ("person", "person", "location", "concept", "concept", "concept")[i % 6]
+        names[i] = w.capitalize() if label != "concept" else w
+        labels[names[i]] = label
+    p = 1.0 / np.arange(1, ENTITY_VOCAB + 1) ** ENTITY_ZIPF_S
+    return names, labels, p / p.sum()
+
+
+def draw_entities(r, count: int) -> list[str]:
+    """``count`` draws from the vocabulary's Zipf weights, repeats dropped."""
+    names, _, p = entity_vocab()
+    return list(dict.fromkeys(names[i] for i in r.choice(ENTITY_VOCAB, count, p=p)))
 
 
 def engine_now():
@@ -730,19 +784,21 @@ def engine_now():
 
 def make_memories(n: int, seed: int, first: int = 0, after_s: int = 0,
                   span_s: int = TWO_YEARS_S) -> list:
-    """``n`` seeded memories of the port's ``Memory`` type: texts from a fixed
-    vocabulary (a quarter with a ``Name: `` speaker prefix, a sixth with a
-    causal marker, each with its number ``first + i`` so no two are equal),
-    tags with the auto-captured and assistant penalty tags on some, arousal,
-    credibility and importance from the seed, temporal refs and toponyms on
-    some, and created_at ``after_s`` to ``after_s + span_s`` seconds after
-    the base date (by default over two years)."""
+    """``n`` seeded memories of the port's ``Memory`` type, conversation
+    turns: texts from a fixed vocabulary (a quarter with a ``Name: `` speaker
+    prefix, a sixth with a causal marker, each with its number ``first + i``
+    so no two are equal), tags with the auto-captured and assistant penalty
+    tags on some, 1-5 entities from the Zipf draw, arousal, credibility and
+    importance from the seed, temporal refs and toponyms on some, and
+    created_at ``after_s`` to ``after_s + span_s`` seconds after the base
+    date (by default over two years)."""
     from datetime import datetime, timedelta, timezone
 
-    from shodh_tpu_torch.types import Experience, Memory, deterministic_memory_id
+    from shodh_tpu_torch.types import Experience, ExperienceType, Memory, deterministic_memory_id
     from shodh_tpu_torch.utils.hashing import content_hash
 
     r = np.random.default_rng(seed)
+    r_ent = np.random.default_rng([seed, ENTITY_SEED])  # apart, so the texts do not move
     base = datetime(*ENGINE_BASE, tzinfo=timezone.utc)
     lengths = r.integers(5, 25, n)
     speaker, causal, auto, assistant, trefs, topo = (r.random((6, n)) < [[0.25], [1 / 6], [0.1],
@@ -761,7 +817,8 @@ def make_memories(n: int, seed: int, first: int = 0, after_s: int = 0,
         tags += ["auto-captured"] if auto[i] else []
         tags += ["assistant-response"] if assistant[i] else []
         at = base + timedelta(seconds=int(created[i]))
-        exp = Experience(content=text, tags=tags,
+        exp = Experience(content=text, tags=tags, experience_type=ExperienceType.CONVERSATION,
+                         entities=draw_entities(r_ent, int(r_ent.integers(1, 6))),
                          temporal_refs=[at.date().isoformat()] if trefs[i] else [],
                          toponyms=[CITIES[i % len(CITIES)]] if topo[i] else [])
         exp.emotional.arousal = float(arousal[i])
@@ -792,23 +849,135 @@ def ingest(holder, mems: list, seed: int, chunk: int = 4096) -> None:
             holder.feedback.record(mems[i].id, float(r.random() * 2 - 1), engine_now())
 
 
-def engine_holder(root, device):
-    """The engine's ``system``: an empty store under ``root``, its feedback,
-    the hash embedder and an f32 index on ``device``; no BM25, graph or query
-    parser (the legs come in as memory-id scores)."""
+def ingest_bm25(holder, mems: list) -> float:
+    """The BM25 step of ``remember`` for stored memories: ``remember_lexical``
+    (the context chain and its ``ctxprev``/``ctxtail`` pointers), in one
+    transaction. Returns the seconds."""
+    from shodh_tpu_torch.engine.funnel_legs import remember_lexical
+
+    t0 = time.perf_counter()
+    with holder.storage.kv.transaction(), holder.bm25.kv.transaction():
+        for m in mems:
+            remember_lexical(holder, m)
+    return time.perf_counter() - t0
+
+
+def ingest_graph(graph, mems: list) -> float:
+    """The graph step of ``remember``: ``GraphMemory.ingest_experience`` with
+    the vocabulary's labels, in one transaction. Returns the seconds."""
+    _, labels, _ = entity_vocab()
+    t0 = time.perf_counter()
+    with graph.kv.transaction():
+        for m in mems:
+            graph.ingest_experience(m, now=m.created_at, entity_labels={
+                e: labels[e] for e in m.experience.entities})
+        graph.flush()
+    return time.perf_counter() - t0
+
+
+class _ChainKv:
+    """The store's kv as ``remember_lexical`` uses it (the ``ctxprev`` and
+    ``ctxtail`` namespaces), in memory."""
+
+    def __init__(self):
+        self.rows: dict[tuple[str, str], bytes] = {}
+
+    def get(self, ns: str, key: str):
+        return self.rows.get((ns, key))
+
+    def put(self, ns: str, key: str, value: bytes) -> None:
+        self.rows[ns, key] = value
+
+    def transaction(self):
+        return contextlib.nullcontext()
+
+
+def ingest_bm25_store(root: str, n: int, seed: int) -> tuple[float, list]:
+    """The BM25 step for ``make_memories(n, seed)`` into ``root/bm25``, in a
+    process of its own beside the vector step: ``remember_lexical`` follows
+    the context chain over the memories themselves, and the ``ctxprev`` /
+    ``ctxtail`` pointers it writes come back for the caller to put into the
+    store. Ingest writes through the Python index, since the native
+    mirror's ``shodh_bm25_remove`` walks every posting list each time a
+    context fold re-inserts a document (ROADMAP.md section 3, R6). Returns
+    (the seconds of the step, the pointer writes)."""
+    from pathlib import Path
     from types import SimpleNamespace
 
-    from shodh_tpu_torch.constants import FLAT_CONSENSUS
+    from shodh_tpu_torch.retrieval.bm25 import BM25Index
+
+    mems = make_memories(n, seed)
+    kv = _ChainKv()
+    system = SimpleNamespace(storage=SimpleNamespace(kv=kv, get={m.id: m for m in mems}.get),
+                             bm25=BM25Index(Path(root) / "bm25", use_native=False))
+    try:
+        seconds = ingest_bm25(system, mems)
+    finally:
+        system.bm25.kv.close()
+    return seconds, [("put", ns, key, value) for (ns, key), value in kv.rows.items()]
+
+
+def ingest_graph_store(root: str, n: int, seed: int) -> float:
+    """The graph step for ``make_memories(n, seed)`` into ``root/graph``, in a
+    process of its own beside the vector step. Returns its seconds."""
+    from pathlib import Path
+
+    from shodh_tpu_torch.graph.graph_memory import GraphMemory
+    from shodh_tpu_torch.models.hash_embedder import HashEmbedder
+
+    graph = GraphMemory(Path(root) / "graph", embedder=HashEmbedder(), device="cpu")
+    try:
+        return ingest_graph(graph, make_memories(n, seed))
+    finally:
+        graph.close()
+
+
+def reopen_legs(holder) -> dict:
+    """Reopen the holder's BM25 index (with the native scorer) and entity
+    graph from what their ingest processes wrote; returns the seconds of
+    each."""
+    from shodh_tpu_torch.graph.graph_memory import GraphMemory
+    from shodh_tpu_torch.retrieval.bm25 import BM25Index
+
+    t0 = time.perf_counter()
+    bm25 = holder.bm25
+    bm25.kv.close()
+    holder.bm25 = BM25Index(bm25.kv.path.parent)
+    t1 = time.perf_counter()
+    graph = holder.graph
+    graph.close()
+    holder.graph = GraphMemory(graph.kv.path.parent, embedder=holder.embedder,
+                               device=graph.device)
+    return {"bm25_open_s": t1 - t0, "graph_open_s": time.perf_counter() - t1}
+
+
+def engine_holder(root, device):
+    """The engine's ``system``: an empty store under ``root``, its feedback,
+    the hash embedder, an f32 index on ``device``, a BM25 index with the
+    native scorer, the entity graph (spreading on ``device``) and the query
+    parser, all under ``root``."""
+    from pathlib import Path
+    from types import SimpleNamespace
+
     from shodh_tpu_torch.engine.feedback import FeedbackStore
+    from shodh_tpu_torch.engine.funnel_legs import store_consensus
+    from shodh_tpu_torch.graph.graph_memory import GraphMemory
     from shodh_tpu_torch.index.device_index import DeviceVectorIndex
     from shodh_tpu_torch.models.hash_embedder import HashEmbedder
+    from shodh_tpu_torch.nlp.query_parser import QueryParser
+    from shodh_tpu_torch.retrieval.bm25 import BM25Index
     from shodh_tpu_torch.storage.store import MemoryStorage
 
+    root = Path(root)
     storage = MemoryStorage(root)
-    return SimpleNamespace(index=DeviceVectorIndex(DIM, "float32", device=device), storage=storage,
-                           feedback=FeedbackStore(storage.kv), embedder=HashEmbedder(),
-                           bm25=None, graph=None, query_parser=None,
-                           _store_consensus=lambda: FLAT_CONSENSUS)
+    embedder = HashEmbedder()
+    holder = SimpleNamespace(index=DeviceVectorIndex(DIM, "float32", device=device),
+                             storage=storage, feedback=FeedbackStore(storage.kv),
+                             embedder=embedder, bm25=BM25Index(root / "bm25"),
+                             graph=GraphMemory(root / "graph", embedder=embedder, device=device),
+                             query_parser=QueryParser())
+    holder._store_consensus = lambda: store_consensus(holder)
+    return holder
 
 
 def pool_calls(holder, ids: list, n: int, polar: bool, seed: int, k: int = ENGINE_K) -> list:
@@ -907,16 +1076,20 @@ def _mirrors_equal(a: dict, b: dict) -> bool:
 
 
 def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
-                 n_in_place=ENGINE_MORE_IN_PLACE, n_timed=ENGINE_TIMED, batches=ENGINE_BATCHES,
-                 n_checked=4, seed=SEED) -> tuple[dict, object]:
+                 n_in_place=ENGINE_MORE_IN_PLACE, n_timed=ENGINE_TIMED,
+                 n_recall_timed=ENGINE_RECALL_TIMED, batches=ENGINE_BATCHES,
+                 n_checked=4, seed=SEED) -> tuple[dict, object, tuple]:
     """The engine's device funnel (``DeviceRecallEngine``) over a store of
     ``n`` memories written under ``root`` through the port's own storage:
-    ingest, the full mirror build, two incremental ingests (the first grows
-    the capacity, the second fits inside it) each held bit for bit to a full
-    rebuild, ``recall_pool`` at the serving shapes (Q=1 and the polar Q=2),
-    ``recall`` and ``recall_batch``; on the card each timed, and every method
-    held to the same engine over a CPU copy of the index. Returns (record,
-    the holder)."""
+    ingest (vectors, then the BM25 and graph legs), the full mirror build,
+    two incremental ingests (the first grows the capacity, the second fits
+    inside it) each held bit for bit to a full rebuild, ``recall_pool`` at
+    the serving shapes (Q=1 and the polar Q=2) with synthetic legs, and
+    ``recall`` and ``recall_batch`` with real ones; on the card each timed,
+    and every method held to the same engine over a CPU copy of the index.
+    The BM25 and graph steps of the first ingest run in processes of their
+    own beside the vector step. Returns (record, the holder, (the engine, its
+    CPU copy))."""
     from pathlib import Path
 
     from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
@@ -930,10 +1103,22 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
            "dim": DIM, "k": ENGINE_K, "hits_per_leg": ENGINE_HITS}
 
     mems = make_memories(n, seed)
-    t0 = time.perf_counter()
-    ingest(holder, mems, seed + 1)
-    _sync(device)
-    rec["ingest_s"] = time.perf_counter() - t0
+    # the BM25 and graph steps each in a process of their own, beside the
+    # vector step here; the ingest seconds of each leg are its own process's
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
+        bm25_job = pool.submit(ingest_bm25_store, str(root), n, seed)
+        graph_job = pool.submit(ingest_graph_store, str(root), n, seed)
+        t0 = time.perf_counter()
+        ingest(holder, mems, seed + 1)
+        _sync(device)
+        rec["ingest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (bm25_s, pointers), graph_s = bm25_job.result(), graph_job.result()
+        wait_s = time.perf_counter() - t0
+    holder.storage.kv.write_batch(pointers)
+    rec["ingest_legs"] = {"bm25_s": bm25_s, "graph_s": graph_s, "wait_s": wait_s,
+                          **reopen_legs(holder)}
 
     t0 = time.perf_counter()
     mirrors = engine.mirrors()
@@ -957,6 +1142,8 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
         cap = holder.index.capacity
         prev = engine.mirrors()
         ingest(holder, more, seed + 4 + len(mems))
+        ingest_bm25(holder, more)
+        ingest_graph(holder.graph, more)
         mems += more
         scans[0] = 0
         t0 = time.perf_counter()
@@ -984,11 +1171,15 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
     rec["mirrors_checked"] = list(full)
     rec["rows"] = len(holder.index)
     rec["capacity"] = holder.index.capacity
+    rec["bm25_docs"] = len(holder.bm25)
+    rec["graph_entities"] = len(holder.graph.entities)
+    rec["graph_edges"] = len(holder.graph.edges)
 
     ids = [m.id for m in mems]
     forms = {"pool_q1": pool_calls(holder, ids, n_timed + n_checked, False, seed + 5),
              "pool_q2": pool_calls(holder, ids, n_timed + n_checked, True, seed + 6)}
-    texts = query_texts(max(n_timed, max(batches) * ENGINE_BATCH_GROUPS) + n_checked, seed + 7)
+    texts = query_texts(max(n_recall_timed, max(batches) * ENGINE_BATCH_GROUPS) + n_checked,
+                        seed + 7)
     now = engine_now()
     if on_card:
         for name, calls in forms.items():
@@ -997,10 +1188,12 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
             rec[f"{name}_ms"] = ms_stats(times)
         engine.recall(texts[-1], ENGINE_K, now)
         rec["recall_ms"] = ms_stats(_timed(lambda t: engine.recall(t, ENGINE_K, now),
-                                           texts[:n_timed]))
+                                           texts[:n_recall_timed]))
+        # one warm-up batch at the smallest size: with real legs a batch is
+        # mostly host work per query, and a B=256 warm-up costs tens of seconds
+        engine.recall_batch(texts[:min(batches)], ENGINE_K, now)
         for b in batches:
             groups = [texts[i * b:(i + 1) * b] for i in range(ENGINE_BATCH_GROUPS)]
-            engine.recall_batch(groups[0], ENGINE_K, now)
             stats = ms_stats(_timed(lambda g: engine.recall_batch(g, ENGINE_K, now), groups))
             rec[f"recall_batch_b{b}_ms"] = stats
             rec[f"recall_batch_b{b}_ms_per_query"] = stats["mean"] / b
@@ -1031,10 +1224,237 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
         same_hits("recall_batch vs CPU", got, want)
         checked["recall_batch"] += 1
     rec["checked_vs_cpu"] = checked
-    return rec, holder
+    return rec, holder, (engine, cpu_engine)
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the funnel's real legs over the engine phase's store
+# ---------------------------------------------------------------------------
+
+LEGS_CALLS = 200
+LEG_SHAPES = ("plain", "speaker", "temporal", "where", "why", "multihop")
+
+
+def leg_queries(n: int, seed: int, known=lambda name: True) -> list[str]:
+    """``n`` query texts of 3-6 vocabulary words and 1-2 entity names from the
+    memories' Zipf draw (redrawn until ``known(name)``: a name no memory
+    carries would be a typo to BM25's spelling fix), cycling through the
+    shapes plain, speaker (a person's name), temporal ("last month"), where,
+    why and multi-hop (two names around the cue "led to")."""
+    _, labels, _ = entity_vocab()
+    r = np.random.default_rng(seed)
+
+    def name(person=False) -> str:
+        while True:
+            e = draw_entities(r, 1)[0]
+            if known(e) and (labels[e] == "person" or not person):
+                return e
+
+    out = []
+    for j in range(n):
+        words = " ".join(r.choice(WORDS, int(r.integers(3, 7))))
+        shape = LEG_SHAPES[j % len(LEG_SHAPES)]
+        ents = [name(person=shape == "speaker")]
+        if shape == "multihop" or r.random() < 0.5:
+            ents += [e for e in [name()] if e != ents[0]]
+        if shape == "speaker":
+            out.append(f"what did {' and '.join(ents)} say about {words}")
+        elif shape == "temporal":
+            out.append(f"{words} {' '.join(ents)} last month")
+        elif shape in ("where", "why"):
+            out.append(f"{shape} did {' '.join(ents)} {words}")
+        elif shape == "multihop":
+            while len(ents) < 2:
+                ents += [e for e in [name()] if e != ents[0]]
+            out.append(f"{ents[0].capitalize()} led to {ents[1].capitalize()} {words}")
+        else:
+            out.append(f"{words} {' '.join(ents)}")
+    return out
+
+
+def _counted_lookups(storage, name: str, cache: str, key=lambda *a: a[0]) -> list:
+    """Count the calls of ``storage.name`` and those that miss its LRU
+    ``cache``; returns the [calls, misses] pair."""
+    fn, acc = getattr(storage, name), [0, 0]
+
+    def counted(*args):
+        acc[0] += 1
+        acc[1] += key(*args) not in getattr(storage, cache)
+        return fn(*args)
+
+    setattr(storage, name, counted)
+    return acc
+
+
+class _VectorMapsRead:
+    """``storage`` with every memory's vector map read once into a dict, for
+    the CPU copy of the engine: it maps the same legs to the same rows
+    without paying the store's LRU misses a second time."""
+
+    def __init__(self, storage):
+        self._storage = storage
+        self._maps = {mid: storage.get_vector_map(mid) for mid in storage.iter_ids()}
+
+    def get_vector_map(self, memory_id: str) -> dict:
+        return dict(self._maps[memory_id])
+
+    def __getattr__(self, name):
+        return getattr(self._storage, name)
+
+
+def phase_legs(root, holder, engines=None, device="cuda", n_calls=LEGS_CALLS, k=ENGINE_K,
+               seed=SEED) -> dict:
+    """The scoring clock is pinned to ``engine_now()`` for the phase, so the
+    card's export and the CPU's decay their edges to the same instant.
+    ``engines`` is the engine phase's (engine, CPU copy), else both are made."""
+    with env(SHODH_EVAL_NOW=engine_now().isoformat()):
+        return _phase_legs(root, holder, engines, device, n_calls, k, seed)
+
+
+def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
+    """``device_funnel_pool`` over the engine phase's store: the query
+    analysis, the graph leg (``DeviceSpreader`` on the card once the graph
+    holds ``SPREADING_DEVICE_MIN_ENTITIES`` entities), the BM25 leg (native
+    scorer) and the pool program, ``n_calls`` queries of the shapes of
+    ``leg_queries``. Times each stage, the spreads on the device (CUDA
+    events), the export's rebuild and the store's row-map lookups with their
+    LRU misses; then holds every spread to a CPU ``DeviceSpreader`` of the
+    same graph (rtol 1e-6) and every pool to the engine over a CPU copy of
+    the index with the same legs, and checks that the native scorer served
+    every BM25 leg."""
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    import torch
+
+    from shodh_tpu_torch import constants as C
+    from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
+    from shodh_tpu_torch.engine.funnel_legs import device_funnel_pool
+    from shodh_tpu_torch.graph import device_spreading as ds
+    from shodh_tpu_torch.index.device_index import DeviceVectorIndex
+    from shodh_tpu_torch.retrieval.bm25 import tokenize
+    from shodh_tpu_torch.types import Query
+
+    on_card = str(device).startswith("cuda")
+    graph, storage = holder.graph, holder.storage
+    rec = {"phase": "legs", "calls": n_calls, "k": k, "memories": len(holder.index),
+           "bm25_docs": len(holder.bm25), "graph_entities": len(graph.entities),
+           "graph_edges": len(graph.edges),
+           "graph_leg": ("DeviceSpreader" if len(graph.entities) >= C.SPREADING_DEVICE_MIN_ENTITIES
+                         else "host"),
+           "native_bm25": holder.bm25._native is not None}
+    if engines is None:
+        holder.index.save(Path(root) / "index" / "text")
+        engines = (DeviceRecallEngine(holder), DeviceRecallEngine(SimpleNamespace(**{
+            **vars(holder), "index": DeviceVectorIndex.load(Path(root) / "index" / "text",
+                                                            device="cpu")})))
+    engine, cpu_engine = engines
+    engine.mirrors()
+    # the flat export, rebuilt whenever the edge count moves; timed on its own
+    spreader = graph._device_spreader()
+    t0 = time.perf_counter()
+    spreader._rebuild()
+    _sync(device)
+    rec["rebuild_s"] = time.perf_counter() - t0
+    rec["export_edges"] = int(spreader._src.numel())
+
+    spreads, events = [], []  # (seeds, hops, activation) per device spread; CUDA events
+    from_seeds, spread = spreader.spreading_activation_from_seeds, ds.spread_device
+
+    def captured(seeds, hops=None):
+        out = from_seeds(seeds, hops)
+        spreads.append((dict(seeds), hops, out))
+        return out
+
+    def timed_spread(*args, **kwargs):
+        if not on_card:
+            return spread(*args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = spread(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    maps = {"get_vector_map": _counted_lookups(storage, "get_vector_map", "_vecmap_cache"),
+            "memory_for_row": _counted_lookups(storage, "memory_for_row", "_rowmap_cache",
+                                               key=lambda row, modality="text": f"{modality}:{row}")}
+    searches = timed_calls(holder.bm25, "search")
+    native = timed_calls(holder.bm25._native, "search") if rec["native_bm25"] else [0, 0.0]
+    rebuilds = timed_calls(spreader, "_rebuild")
+    spreader.spreading_activation_from_seeds = captured
+    ds.spread_device = timed_spread
+    postings = holder.bm25._postings
+    texts = leg_queries(n_calls, seed + 11,
+                        known=lambda e: all(t in postings for t in tokenize(e)))
+    now = engine_now()
+    stages = {key: [] for key in ("analyze_ms", "embed_ms", "graph_ms", "bm25_ms",
+                                  "device_pool_ms", "call_ms")}
+    sizes, served = {"bm25": [], "graph": []}, []
+    try:
+        for t in texts:
+            t0 = time.perf_counter()
+            out = device_funnel_pool(holder, engine, Query(query_text=t, max_results=k), k, now)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            if out is None:
+                raise AssertionError(f"legs: the device funnel fell through on {t!r}")
+            pool, legs = out
+            for key in stages:
+                stages[key].append(call_ms if key == "call_ms" else legs.timings[key])
+            sizes["bm25"].append(len(legs.args[1]))
+            sizes["graph"].append(len(legs.args[2]))
+            served.append((legs, pool))
+    finally:
+        ds.spread_device = spread
+        del spreader.spreading_activation_from_seeds, spreader._rebuild
+        for name in maps:
+            del vars(storage)[name]
+        vars(holder.bm25).pop("search", None)
+        if rec["native_bm25"]:
+            del holder.bm25._native.search
+    _sync(device)
+
+    def stat(values) -> dict:
+        v = np.asarray(values, np.float64)
+        return {"mean": float(v.mean()), "p50": float(np.percentile(v, 50)),
+                "p99": float(np.percentile(v, 99)), "max": float(v.max())}
+
+    rec["stage_ms"] = {key: stat(v) for key, v in stages.items()}
+    rec["leg_sizes"] = {key: stat(v) for key, v in sizes.items()}
+    rec["spreads"] = len(spreads)
+    if events:
+        rec["spread_device_ms"] = stat([s.elapsed_time(e) for s, e in events])
+    rec["rebuilds_during_calls"] = rebuilds[0]
+    rec["row_maps_per_call"] = {name: {"calls": c / n_calls, "misses": m / n_calls,
+                                       "miss_share": m / max(1, c)}
+                                for name, (c, m) in maps.items()}
+    rec["bm25_searches"], rec["native_searches"] = searches[0], native[0]
+    if rec["graph_leg"] == "DeviceSpreader" and not spreads:
+        raise AssertionError("legs: no graph leg went through DeviceSpreader")
+    if not rec["native_bm25"] or native[0] != searches[0] or searches[0] != n_calls:
+        raise AssertionError(f"legs: the native scorer served {native[0]} of {searches[0]} "
+                             f"BM25 legs in {n_calls} calls")
+
+    # every spread against a CPU export of the same graph
+    cpu_spreader = ds.DeviceSpreader(graph, "cpu")
+    for seeds, hops, got in spreads:
+        want = cpu_spreader.spreading_activation_from_seeds(seeds, hops)
+        if sorted(got) != sorted(want):
+            raise AssertionError("legs: the card's spread reached other memories than the CPU's")
+        for mid, v in want.items():
+            if not abs(got[mid] - v) <= 1e-6 * abs(v):
+                raise AssertionError(f"legs: spread {got[mid]} vs CPU {v} at {mid}")
+    # every pool against the engine over a CPU copy of the index, same legs
+    cpu_system = cpu_engine.system
+    cpu_system.storage = _VectorMapsRead(storage)
+    try:
+        for legs, pool in served:
+            same_hits("legs pool vs CPU", pool,
+                      cpu_engine.recall_pool(*legs.args, **legs.kwargs))
+    finally:
+        cpu_system.storage = storage
+    rec["checked_vs_cpu"] = {"spreads": len(spreads), "pools": len(served)}
+    return rec
 
 
 def card_line() -> str:
@@ -1060,9 +1480,22 @@ def main() -> int:
     # Phase 0: card and build
     card = card_line()
     print(card, flush=True)
-    build_s = _build.build()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from shodh_tpu_torch.retrieval import native
+
+    def build_native() -> float:
+        t0 = time.perf_counter()
+        native.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        native_s = pool.submit(build_native)
+        build_s = _build.build()
+        native_s = native_s.result()
     emit({"phase": "setup", "card": card, "build_s": build_s,
-          "build_dir": str(_build.build_dir()), "torch": torch.__version__,
+          "build_dir": str(_build.build_dir()), "native_build_s": native_s,
+          "native_library": str(native.library_path()), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
     rng = np.random.default_rng(SEED)
@@ -1098,11 +1531,20 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
-        rec_engine, holder = phase_engine(tmp)
+        rec_engine, holder, engines = phase_engine(tmp)
         rec_engine["launches"] = read_launches()  # none of K1-K3 lies on this path
+        emit(rec_engine)
+        reset_launches()
+        rec_legs = phase_legs(tmp, holder, engines)
+        rec_legs["launches"] = read_launches()
+        rec_legs["ingest_legs"] = rec_engine["ingest_legs"]
+        emit(rec_legs)
+        holder.graph.close()
         holder.storage.close()
-    emit(rec_engine)
-    del holder
+    for rec in (rec_engine, rec_legs):
+        if any(rec["launches"].values()):
+            raise AssertionError(f"{rec['phase']}: launched K1-K3, which lie off its path")
+    del holder, engines
     torch.cuda.empty_cache()
 
     emit({"kernels": [

@@ -321,8 +321,8 @@ def test_chip_smoke_engine_phase_matches_reference(tmp_path):
     """The engine phase at a small size on the CPU, then the same store and
     index through the JAX package's engine: equal mirrors, and every pool
     form gives the same list."""
-    rec, holder = cs.phase_engine(tmp_path, device="cpu", n=1500, n_more=2700, n_in_place=40,
-                                  n_timed=0)
+    rec, holder, _ = cs.phase_engine(tmp_path, device="cpu", n=1500, n_more=2700, n_in_place=40,
+                                     n_timed=0)
     assert rec["incremental_grew_capacity"] and not rec["incremental_in_place_grew_capacity"]
     assert rec["rows"] == 1500 + 2700 + 40 and rec["capacity"] == 8192
     checked = rec["checked_vs_cpu"]

@@ -137,6 +137,58 @@ def test_frames_equal_reference():
     assert ser.decode(ref_ser.encode(rec)) == ref_ser.decode(ser.encode(rec)) == rec
 
 
+# The graph's and BM25's records (graph.db, bm25.db), drawn field for field
+_NAMES = st.text(min_size=1, max_size=12)
+_TIMES = st.datetimes(min_value=datetime(1990, 1, 1), max_value=datetime(2090, 1, 1),
+                      timezones=st.sampled_from([timezone.utc, timezone(timedelta(hours=-5))]))
+_UNIT = st.floats(0.0, 1.0)
+
+
+@st.composite
+def _entity(draw):
+    from shodh_tpu_torch.graph.graph_memory import EntityNode
+
+    return EntityNode(
+        id=draw(_NAMES), name=draw(_NAMES), label=draw(st.sampled_from(["concept", "person"])),
+        fine_type=draw(st.sampled_from(["", "database"])), salience=draw(_UNIT),
+        mention_count=draw(st.integers(0, 10**6)), first_seen=draw(st.none() | _TIMES),
+        last_seen=draw(st.none() | _TIMES), aliases=draw(st.lists(_NAMES, max_size=4)),
+        is_proper=draw(st.booleans())).to_dict()
+
+
+@st.composite
+def _edge(draw):
+    from shodh_tpu_torch.graph.plasticity import Edge
+
+    return Edge(
+        src=draw(_NAMES), dst=draw(_NAMES), rel_type=draw(st.sampled_from(["co_occurs", "causes"])),
+        strength=draw(_UNIT), tier=draw(st.integers(0, 2)),
+        ltp=draw(st.sampled_from(["none", "burst", "weekly", "full"])),
+        coactivation_count=draw(st.integers(1, 10**6)), created_at=draw(_TIMES),
+        last_activated=draw(_TIMES), burst_until=draw(st.none() | _TIMES),
+        activation_history=draw(st.lists(_TIMES, max_size=30)),
+        provenance=draw(st.lists(_NAMES, max_size=8))).to_dict()
+
+
+_GRAPH_AND_BM25_RECORDS = (
+    _entity() | _edge()
+    | st.lists(_NAMES, max_size=40)  # entity_memories
+    | st.fixed_dictionaries({"memories": st.lists(_NAMES, max_size=10),
+                             "entities": st.lists(_NAMES, max_size=10)})  # an episode
+    | st.dictionaries(_NAMES, st.floats(0.0, 1e6) | st.integers(0, 50), max_size=40)  # postings
+)
+
+
+@settings(max_examples=300, deadline=None)
+@given(_GRAPH_AND_BM25_RECORDS)
+def test_graph_and_bm25_records_encode_to_the_references_bytes(obj):
+    """Entity nodes, edges (timestamps, tiers, LTP fields), entity-memory
+    lists, episodes, and BM25 posting, expansion and class maps."""
+    assert ser.packb(obj) == _ref_pack(obj)
+    assert ser.encode(obj) == ref_ser.encode(obj)
+    assert ser.decode(ref_ser.encode(obj)) == ref_ser.decode(ser.encode(obj))
+
+
 # ---------------------------------------------------------------------------
 # MemoryStorage: each package reads the other's store
 # ---------------------------------------------------------------------------
