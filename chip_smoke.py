@@ -35,13 +35,19 @@ Phases, each printing one JSON line:
    rebuild, ``recall_pool`` at the serving shapes (Q=1 and the polar Q=2,
    synthetic legs), ``recall`` and ``recall_batch`` (B=32, 256; real legs),
    timed, and every method held to the same engine over a CPU copy of the
-   index;
-7. ``legs``: 200 ``device_funnel_pool`` calls over the same store (query
-   analysis, the graph leg through ``DeviceSpreader`` on the card, the BM25
-   leg through the native scorer, the pool program), with per-stage times,
-   the spreads' device time, the export's rebuild, the row-map lookups and
-   their LRU misses; every spread held to a CPU export and every pool to the
-   engine over a CPU copy of the index;
+   index; then the store's corpus semantic model (``adapt_semantics``, the
+   newest 20,000 texts), its temporal facts and one distillation of facts
+   over its newest memories, each timed;
+7. ``legs``: 48 ``device_funnel_recall`` calls over the same store,
+   readonly (query analysis, the graph leg through ``DeviceSpreader`` on the
+   card, the BM25 leg through the native scorer with its semantic
+   expansion, the pool program, and the host epilogue: PRF, the boost stack,
+   L5, learned fusion, the companion re-rank), with per-stage times, the
+   spreads' device time, the export's rebuild, the store's row-map lookups
+   (none, now that the engine keeps its own row map) and how many calls
+   armed PRF, learned fusion and the companion re-rank; every spread held to
+   a CPU export, every pool to the engine over a CPU copy of the index and
+   every ranked answer to the epilogue over that pool;
 8. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
@@ -726,6 +732,10 @@ ENGINE_RECALL_TIMED = 32
 ENGINE_BATCHES = (32, 256)
 ENGINE_BATCH_GROUPS = 1  # timed recall_batch calls per batch size
 ENGINE_DENSITY = 1.2
+# Facts are distilled over the store's newest memories only: distillation
+# compares every eligible memory with every other, so its time grows with
+# the square of the memories it reads (``distill_s`` reports it)
+DISTILL_NEWEST = 3072
 WORDS = tuple("""deploy cache latency kafka redis cluster migration database pottery
 painting mugs vase dog park trip flight hotel lisbon porto berlin tokyo meeting sprint
 standup review incident outage alert metric dashboard budget invoice contract client design
@@ -954,13 +964,17 @@ def reopen_legs(holder) -> dict:
 def engine_holder(root, device):
     """The engine's ``system``: an empty store under ``root``, its feedback,
     the hash embedder, an f32 index on ``device``, a BM25 index with the
-    native scorer, the entity graph (spreading on ``device``) and the query
-    parser, all under ``root``."""
+    native scorer, the entity graph (spreading on ``device``), the query
+    parser, the working and session tiers and both fact stores, all under
+    ``root``."""
     from pathlib import Path
     from types import SimpleNamespace
 
+    from shodh_tpu_torch.engine.facts import SemanticFactStore
     from shodh_tpu_torch.engine.feedback import FeedbackStore
     from shodh_tpu_torch.engine.funnel_legs import store_consensus
+    from shodh_tpu_torch.engine.temporal_facts import TemporalFactStore
+    from shodh_tpu_torch.engine.tiers import SessionMemory, WorkingMemory
     from shodh_tpu_torch.graph.graph_memory import GraphMemory
     from shodh_tpu_torch.index.device_index import DeviceVectorIndex
     from shodh_tpu_torch.models.hash_embedder import HashEmbedder
@@ -975,7 +989,11 @@ def engine_holder(root, device):
                              storage=storage, feedback=FeedbackStore(storage.kv),
                              embedder=embedder, bm25=BM25Index(root / "bm25"),
                              graph=GraphMemory(root / "graph", embedder=embedder, device=device),
-                             query_parser=QueryParser())
+                             query_parser=QueryParser(), working=WorkingMemory(),
+                             session=SessionMemory(),
+                             facts=SemanticFactStore(storage.kv, embedder),
+                             temporal_facts=TemporalFactStore(storage.kv), data_dir=root,
+                             follower_readonly=False)
     holder._store_consensus = lambda: store_consensus(holder)
     return holder
 
@@ -1017,6 +1035,38 @@ def pool_calls(holder, ids: list, n: int, polar: bool, seed: int, k: int = ENGIN
             "now": now,
         }))
     return calls
+
+
+def semantic_step(holder, mems: list) -> dict:
+    """The maintenance ``remember`` and ``flush`` run beside ingest: the
+    temporal facts of every memory (``remember`` step 5), the corpus
+    semantic model (``adapt_semantics``, attached at weight 0 and saved
+    under the store) and one distillation of facts over the newest
+    ``DISTILL_NEWEST`` memories. Returns the seconds and record counts."""
+    from types import SimpleNamespace
+
+    from shodh_tpu_torch.engine.semantics import adapt_semantics
+
+    rec = {}
+    t0 = time.perf_counter()
+    with holder.storage.kv.transaction():
+        rec["temporal_facts"] = sum(
+            holder.temporal_facts.extract_and_store(m, now=m.created_at) is not None for m in mems)
+    rec["temporal_facts_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not adapt_semantics(holder):
+        raise AssertionError("adapt_semantics fitted no model")
+    rec["semantic_fit_s"] = time.perf_counter() - t0
+    model = holder.embedder._sem_model
+    rec["semantic_vocab"], rec["semantic_fitted_n"] = len(model.vocab), model.fitted_n
+    newest = sorted(mems, key=lambda m: (m.created_at, m.id))[-DISTILL_NEWEST:]
+    t0 = time.perf_counter()
+    with holder.storage.kv.transaction():
+        rec["facts"] = holder.facts.distill(SimpleNamespace(iter_memories=lambda: iter(newest)),
+                                            engine_now())
+    rec["distill_s"] = time.perf_counter() - t0
+    rec["distill_memories"] = len(newest)
+    return rec
 
 
 def query_texts(n: int, seed: int) -> list[str]:
@@ -1174,6 +1224,7 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
     rec["bm25_docs"] = len(holder.bm25)
     rec["graph_entities"] = len(holder.graph.entities)
     rec["graph_edges"] = len(holder.graph.edges)
+    rec["semantics"] = semantic_step(holder, mems)
 
     ids = [m.id for m in mems]
     forms = {"pool_q1": pool_calls(holder, ids, n_timed + n_checked, False, seed + 5),
@@ -1231,7 +1282,13 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
 # Phase 7: the funnel's real legs over the engine phase's store
 # ---------------------------------------------------------------------------
 
-LEGS_CALLS = 200
+# 8 calls of each query shape: a PRF call re-fuses the whole graph leg (about
+# 50,000 memories at this store size), which the epilogue then loads and
+# scores, once on the card's pool and once on the CPU copy's
+LEGS_CALLS = 48
+# The store's memory cache (``SHODH_MEM_CACHE_CAP``) sized to hold the whole
+# store, as a server holding it would: those PRF candidate loads then hit it
+STORE_CACHE_CAP = 1 << 17
 LEG_SHAPES = ("plain", "speaker", "temporal", "where", "why", "multihop")
 
 
@@ -1286,52 +1343,47 @@ def _counted_lookups(storage, name: str, cache: str, key=lambda *a: a[0]) -> lis
     return acc
 
 
-class _VectorMapsRead:
-    """``storage`` with every memory's vector map read once into a dict, for
-    the CPU copy of the engine: it maps the same legs to the same rows
-    without paying the store's LRU misses a second time."""
-
-    def __init__(self, storage):
-        self._storage = storage
-        self._maps = {mid: storage.get_vector_map(mid) for mid in storage.iter_ids()}
-
-    def get_vector_map(self, memory_id: str) -> dict:
-        return dict(self._maps[memory_id])
-
-    def __getattr__(self, name):
-        return getattr(self._storage, name)
+LEG_STAGES = ("analyze_ms", "embed_ms", "graph_ms", "bm25_ms", "device_pool_ms", "prf_ms",
+              "fusion_ms", "load_ms", "score_ms", "learned_ms", "companion_ms", "total_ms")
 
 
 def phase_legs(root, holder, engines=None, device="cuda", n_calls=LEGS_CALLS, k=ENGINE_K,
                seed=SEED) -> dict:
     """The scoring clock is pinned to ``engine_now()`` for the phase, so the
-    card's export and the CPU's decay their edges to the same instant.
-    ``engines`` is the engine phase's (engine, CPU copy), else both are made."""
-    with env(SHODH_EVAL_NOW=engine_now().isoformat()):
+    card's export and the CPU's decay their edges to the same instant, and
+    recall is readonly, so the card's calls and the CPU's read one unchanged
+    store. ``engines`` is the engine phase's (engine, CPU copy), else both
+    are made."""
+    with env(SHODH_EVAL_NOW=engine_now().isoformat(), SHODH_RECALL_READONLY="1"):
         return _phase_legs(root, holder, engines, device, n_calls, k, seed)
 
 
 def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
-    """``device_funnel_pool`` over the engine phase's store: the query
+    """``device_funnel_recall`` over the engine phase's store: the query
     analysis, the graph leg (``DeviceSpreader`` on the card once the graph
     holds ``SPREADING_DEVICE_MIN_ENTITIES`` entities), the BM25 leg (native
-    scorer) and the pool program, ``n_calls`` queries of the shapes of
-    ``leg_queries``. Times each stage, the spreads on the device (CUDA
-    events), the export's rebuild and the store's row-map lookups with their
-    LRU misses; then holds every spread to a CPU ``DeviceSpreader`` of the
-    same graph (rtol 1e-6) and every pool to the engine over a CPU copy of
-    the index with the same legs, and checks that the native scorer served
-    every BM25 leg."""
+    scorer), the pool program and the host epilogue, ``n_calls`` queries of
+    the shapes of ``leg_queries``. Times each stage, the spreads on the
+    device (CUDA events) and the export's rebuild; counts the store's
+    row-map lookups and the calls that armed PRF, learned fusion and the
+    companion re-rank. Then holds every spread to a CPU ``DeviceSpreader`` of
+    the same graph (rtol 1e-6), every pool to the engine over a CPU copy of
+    the index with the same legs, and every ranked answer to the epilogue
+    over that CPU pool; and checks that the native scorer served every BM25
+    leg."""
+    from dataclasses import replace
     from pathlib import Path
     from types import SimpleNamespace
 
     import torch
 
     from shodh_tpu_torch import constants as C
+    from shodh_tpu_torch.engine import companion
+    from shodh_tpu_torch.engine import funnel_legs as fl
     from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
-    from shodh_tpu_torch.engine.funnel_legs import device_funnel_pool
     from shodh_tpu_torch.graph import device_spreading as ds
     from shodh_tpu_torch.index.device_index import DeviceVectorIndex
+    from shodh_tpu_torch.retrieval import learned_fusion as lf
     from shodh_tpu_torch.retrieval.bm25 import tokenize
     from shodh_tpu_torch.types import Query
 
@@ -1342,7 +1394,8 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
            "graph_edges": len(graph.edges),
            "graph_leg": ("DeviceSpreader" if len(graph.entities) >= C.SPREADING_DEVICE_MIN_ENTITIES
                          else "host"),
-           "native_bm25": holder.bm25._native is not None}
+           "native_bm25": holder.bm25._native is not None,
+           "semantic_model": holder.embedder._sem_model is not None}
     if engines is None:
         holder.index.save(Path(root) / "index" / "text")
         engines = (DeviceRecallEngine(holder), DeviceRecallEngine(SimpleNamespace(**{
@@ -1376,36 +1429,62 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
         events.append((start, end))
         return out
 
+    pools = []  # (pool, legs) of each call, as device_funnel_recall proposed them
+    pool_fn = fl.device_funnel_pool
+
+    def captured_pool(*args):
+        out = pool_fn(*args)
+        pools.append(out)
+        return out
+
     maps = {"get_vector_map": _counted_lookups(storage, "get_vector_map", "_vecmap_cache"),
             "memory_for_row": _counted_lookups(storage, "memory_for_row", "_rowmap_cache",
                                                key=lambda row, modality="text": f"{modality}:{row}")}
     searches = timed_calls(holder.bm25, "search")
     native = timed_calls(holder.bm25._native, "search") if rec["native_bm25"] else [0, 0.0]
     rebuilds = timed_calls(spreader, "_rebuild")
+    armed = {"learned": 0, "companion": 0}  # calls of each re-rank
+    rerank, companion_rerank = lf.LearnedFusionModel.rerank, companion.companion_rerank
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            armed[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
     spreader.spreading_activation_from_seeds = captured
     ds.spread_device = timed_spread
+    fl.device_funnel_pool = captured_pool
+    lf.LearnedFusionModel.rerank = counted("learned", rerank)
+    companion.companion_rerank = counted("companion", companion_rerank)
     postings = holder.bm25._postings
     texts = leg_queries(n_calls, seed + 11,
                         known=lambda e: all(t in postings for t in tokenize(e)))
     now = engine_now()
-    stages = {key: [] for key in ("analyze_ms", "embed_ms", "graph_ms", "bm25_ms",
-                                  "device_pool_ms", "call_ms")}
+    stages = {key: [] for key in LEG_STAGES + ("call_ms",)}
     sizes, served = {"bm25": [], "graph": []}, []
     try:
         for t in texts:
+            query = Query(query_text=t, max_results=k)
             t0 = time.perf_counter()
-            out = device_funnel_pool(holder, engine, Query(query_text=t, max_results=k), k, now)
+            result = fl.device_funnel_recall(holder, engine, query, k, now)
             call_ms = (time.perf_counter() - t0) * 1e3
-            if out is None:
+            if result is None:
                 raise AssertionError(f"legs: the device funnel fell through on {t!r}")
-            pool, legs = out
-            for key in stages:
-                stages[key].append(call_ms if key == "call_ms" else legs.timings[key])
+            pool, legs = pools[-1]
+            timings = result.stage_timings_ms
+            for key in LEG_STAGES:
+                if key in timings:
+                    stages[key].append(timings[key])
+            stages["call_ms"].append(call_ms)
             sizes["bm25"].append(len(legs.args[1]))
             sizes["graph"].append(len(legs.args[2]))
-            served.append((legs, pool))
+            served.append((query, legs, pool, result))
     finally:
         ds.spread_device = spread
+        fl.device_funnel_pool = pool_fn
+        lf.LearnedFusionModel.rerank = rerank
+        companion.companion_rerank = companion_rerank
         del spreader.spreading_activation_from_seeds, spreader._rebuild
         for name in maps:
             del vars(storage)[name]
@@ -1419,7 +1498,7 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
         return {"mean": float(v.mean()), "p50": float(np.percentile(v, 50)),
                 "p99": float(np.percentile(v, 99)), "max": float(v.max())}
 
-    rec["stage_ms"] = {key: stat(v) for key, v in stages.items()}
+    rec["stage_ms"] = {key: stat(v) for key, v in stages.items() if v}
     rec["leg_sizes"] = {key: stat(v) for key, v in sizes.items()}
     rec["spreads"] = len(spreads)
     if events:
@@ -1428,12 +1507,17 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
     rec["row_maps_per_call"] = {name: {"calls": c / n_calls, "misses": m / n_calls,
                                        "miss_share": m / max(1, c)}
                                 for name, (c, m) in maps.items()}
+    rec["armed_calls"] = {"prf": len(stages["prf_ms"]), **armed}
     rec["bm25_searches"], rec["native_searches"] = searches[0], native[0]
     if rec["graph_leg"] == "DeviceSpreader" and not spreads:
         raise AssertionError("legs: no graph leg went through DeviceSpreader")
-    if not rec["native_bm25"] or native[0] != searches[0] or searches[0] != n_calls:
+    # a PRF call searches BM25 a second time, with the feedback terms
+    if not rec["native_bm25"] or native[0] != searches[0] or searches[0] != n_calls + len(
+            stages["prf_ms"]):
         raise AssertionError(f"legs: the native scorer served {native[0]} of {searches[0]} "
-                             f"BM25 legs in {n_calls} calls")
+                             f"BM25 searches in {n_calls} calls")
+    if not all(rec["armed_calls"].values()) or not rec["semantic_model"]:
+        raise AssertionError(f"legs: an epilogue branch never ran: {rec['armed_calls']}")
 
     # every spread against a CPU export of the same graph
     cpu_spreader = ds.DeviceSpreader(graph, "cpu")
@@ -1444,16 +1528,17 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
         for mid, v in want.items():
             if not abs(got[mid] - v) <= 1e-6 * abs(v):
                 raise AssertionError(f"legs: spread {got[mid]} vs CPU {v} at {mid}")
-    # every pool against the engine over a CPU copy of the index, same legs
+    # every pool against the engine over a CPU copy of the index, same legs,
+    # and every ranked answer against the epilogue over that pool
     cpu_system = cpu_engine.system
-    cpu_system.storage = _VectorMapsRead(storage)
-    try:
-        for legs, pool in served:
-            same_hits("legs pool vs CPU", pool,
-                      cpu_engine.recall_pool(*legs.args, **legs.kwargs))
-    finally:
-        cpu_system.storage = storage
-    rec["checked_vs_cpu"] = {"spreads": len(spreads), "pools": len(served)}
+    for query, legs, pool, result in served:
+        cpu_pool = cpu_engine.recall_pool(*legs.args, **legs.kwargs)
+        same_hits("legs pool vs CPU", pool, cpu_pool)
+        want = fl.rank_funnel_pool(cpu_system, query, k, cpu_pool, replace(legs, timings={}))
+        same_hits("legs answer vs CPU", [(s.memory.id, s.score) for s in result.memories],
+                  [(s.memory.id, s.score) for s in want.memories])
+    rec["checked_vs_cpu"] = {"spreads": len(spreads), "pools": len(served),
+                             "answers": len(served)}
     return rec
 
 
@@ -1466,6 +1551,7 @@ def card_line() -> str:
 
 
 def main() -> int:
+    os.environ["SHODH_MEM_CACHE_CAP"] = str(STORE_CACHE_CAP)  # read when the store imports
     import torch
 
     if not torch.cuda.is_available():
@@ -1546,6 +1632,7 @@ def main() -> int:
             raise AssertionError(f"{rec['phase']}: launched K1-K3, which lie off its path")
     del holder, engines
     torch.cuda.empty_cache()
+    emit({"phase": "total", "script_s": time.perf_counter() - _START})
 
     emit({"kernels": [
         {"name": "groupmax", "route": "cuda", "source": "shodh_tpu_torch/ops/csrc/groupmax.cu",

@@ -29,6 +29,16 @@ def env_float(name: str, default: float) -> float:
         return default
 
 
+def env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
+
+
 # Embedding: encoder sequence cap and the embedding cache's size
 MAX_TOKENS = 256
 EMBED_CACHE_MAX = 10_000
@@ -250,3 +260,100 @@ L1_PROMOTION_THRESHOLD = 0.5
 L2_PROMOTION_THRESHOLD = 0.7
 EDGE_PROMOTION_MEMORY_BOOST_L2 = 0.015
 EDGE_PROMOTION_MEMORY_BOOST_L3 = 0.03
+
+
+# Leg fusion (retrieval/fusion.py): the domain endpoints of the FLAT
+# consensus, the RRF escape hatch's k and its linguistic weight
+FLAT_CONSENSUS_DIALOGUE = 0.35
+FLAT_CONSENSUS_NOTES_V = 0.5
+RRF_K_GRAPH_FUSION = 30.0
+DENSITY_LINGUISTIC_WEIGHT = 0.15
+
+# Memory tiers (engine/tiers.py)
+DEFAULT_WORKING_MEMORY_SIZE = 100
+DEFAULT_SESSION_MEMORY_SIZE_MB = 100
+TIER_PROMOTION_WORKING_IMPORTANCE = 0.35
+TIER_PROMOTION_WORKING_AGE_SECS = 1800
+TIER_PROMOTION_SESSION_IMPORTANCE = 0.5
+TIER_PROMOTION_SESSION_AGE_SECS = 86400
+
+# The ranked epilogue's boost stack (engine/rank_pool.py)
+SAME_EPISODE_BOOST = 0.3
+ATTRIBUTE_QUERY_BOOST = 1.5
+TEMPORAL_FACT_BOOST = 1.0
+GEO_INJECT_FLOOR = 0.05
+MAX_GEO_PREFETCH_CANDIDATES = 3
+ONTOLOGICAL_MIN_CONFIDENCE = 0.3
+ONTOLOGICAL_DENSITY_THRESHOLD = 8.0
+ONTOLOGICAL_RERANK_BOOST = 0.08
+ONTOLOGICAL_RERANK_MAX = 0.25
+# at most this many results of one 2h window of one conversation in the
+# top-k (0 = off)
+TEMPORAL_DIVERSITY_CAP = env_int("SHODH_DIVERSITY_CAP", 0)
+ENV_RECALL_READONLY = "SHODH_RECALL_READONLY"  # suppress usage writes
+
+
+def recall_readonly() -> bool:
+    return env_flag(ENV_RECALL_READONLY, False)
+
+
+# Pseudo-relevance feedback (a second BM25 pass; boost family "prf"), its
+# question-type gates read at call time
+PRF_TOP_DOCS = env_int("SHODH_PRF_TOP_DOCS", 5)
+PRF_TERMS = env_int("SHODH_PRF_TERMS", 6)
+PRF_TERM_WEIGHT = env_float("SHODH_PRF_WEIGHT", 0.3)
+
+
+def prf_enabled() -> bool:
+    return env_flag("SHODH_PRF", True)
+
+
+def prf_ungated() -> bool:
+    return env_flag("SHODH_PRF_UNGATED", False)
+
+
+def prf_multihop() -> bool:
+    return env_flag("SHODH_PRF_MULTIHOP", False)
+
+
+def prf_any_nontemporal() -> bool:
+    return env_flag("SHODH_PRF_ANY_NONTEMPORAL", True)
+
+
+# Semantic facts (engine/facts.py): distillation of old episodic clusters,
+# dedup, decay
+CONSOLIDATION_MIN_SUPPORT_SMALL = 2
+CONSOLIDATION_MIN_SUPPORT_MEDIUM = 3
+CONSOLIDATION_MIN_SUPPORT_LARGE = 4
+CONSOLIDATION_CLUSTER_SIZE_CAP = 20
+CONSOLIDATION_MIN_AGE_DAYS = 7
+CONSOLIDATION_JACCARD_THRESHOLD = 0.45
+CONSOLIDATION_MAX_CANDIDATES_PER_MEMORY = 5
+CONSOLIDATION_SALIENT_MIN_CONTENT_WORDS = 4
+FACT_DECAY_GRACE_DAYS = 90
+FACT_DECAY_HALF_LIFE_BASE_DAYS = 180.0
+FACT_DECAY_HALF_LIFE_PER_SUPPORT_DAYS = 30.0
+FACT_DEDUP_COSINE_THRESHOLD = 0.80
+FACT_DEDUP_JACCARD_FLOOR = 0.30
+FACT_DEDUP_JACCARD_FALLBACK = 0.75
+
+
+# Corpus-adaptive semantics (models/semantic_model.py, engine/semantics.py):
+# the master switch and the dense blend weight, read at call time; refit
+# growth, the corpus floor, the fit sample's cap and the BM25 expansion
+def semantic_adapt_enabled() -> bool:
+    return env_flag("SHODH_ADAPTIVE_SEMANTICS", True)
+
+
+def semantic_blend_weight() -> float:
+    return env_float("SHODH_SEM_WEIGHT", 0.0)
+
+
+SEMANTIC_REFIT_MIN_ABS = env_int("SHODH_SEM_REFIT_ABS", 64)
+SEMANTIC_REFIT_FRAC = env_float("SHODH_SEM_REFIT_FRAC", 0.5)
+SEMANTIC_MIN_CORPUS = 32
+SEMANTIC_FIT_MAX_TEXTS = env_int("SHODH_SEM_FIT_MAX_TEXTS", 20000)
+SEM_EXPANSION_PER_STEM = env_int("SHODH_SEM_EXP_PER_STEM", 3)
+SEM_EXPANSION_MIN_SIM = env_float("SHODH_SEM_EXP_MIN_SIM", 0.45)
+SEM_EXPANSION_MAX_TERMS = env_int("SHODH_SEM_EXP_MAX_TERMS", 8)
+SEM_EXPANSION_TERM_WEIGHT = env_float("SHODH_SEM_EXP_WEIGHT", 0.2)

@@ -23,6 +23,14 @@ call until the row count, the compaction epoch or :meth:`invalidate`
 changes. Append-only growth fills only the new rows. Every tensor lives on
 the index's device; nothing falls back to the CPU, and a device error
 propagates to the caller.
+
+Beside the mirrors the engine keeps, on the host, each memory's text rows
+and each row's memory, filled where the mirrors read them (the full build
+and the incremental fill) and dropped with them. The legs map memory ids to
+rows, and the programs' rows map back to memory ids, through these maps
+instead of the store's per-memory lookups; a map entry left behind by a
+delete points at rows the index no longer holds as valid, and the legs skip
+those rows, so every output is the one the store's lookups give.
 """
 
 from __future__ import annotations
@@ -156,6 +164,10 @@ class DeviceRecallEngine:
         self._meta_host: Optional[dict] = None
         self._created_abs: Optional[np.ndarray] = None
         self._built_hwm: int = 0
+        # memory id -> its text rows, and text row -> memory id (None where
+        # no stored memory holds the row), as of the last mirror fill
+        self._rows_of: dict[str, list[int]] = {}
+        self._row_memory: list[Optional[str]] = []
 
     def _corpus_rows(self) -> int:
         return len(self.system.index)
@@ -197,12 +209,15 @@ class DeviceRecallEngine:
         created_abs = np.zeros(cap, np.float64)  # absolute hours, re-based below
         origin: Optional[datetime] = None
         meta = _empty_mirrors(cap)
+        rows_of: dict[str, list[int]] = {}
+        row_memory: list[Optional[str]] = [None] * cap
         storage = self.system.storage
         fb = self.system.feedback
         for mem in storage.iter_memories():
             rows = storage.get_vector_map(mem.id).get("text", [])
             if not rows:
                 continue
+            rows_of[mem.id] = list(rows)
             mom = fb.momentum(mem.id) if fb is not None else 0.0
             if origin is None or mem.created_at < origin:
                 origin = mem.created_at
@@ -212,6 +227,7 @@ class DeviceRecallEngine:
                     continue
                 _fill_row(meta, r, mem, mom)
                 created_abs[r] = hours
+                row_memory[r] = mem.id
         self._origin = origin or _EPOCH
         origin_h = _hours_since_epoch(self._origin)
         meta["created_hours"] = (created_abs - origin_h).astype(np.float32)
@@ -221,6 +237,7 @@ class DeviceRecallEngine:
         # Host copies power the incremental-growth path
         self._meta_host = meta
         self._created_abs = created_abs
+        self._rows_of, self._row_memory = rows_of, row_memory
         self._built_hwm = storage.text_rows_hwm
         self._built_rows = len(index)
         self._built_epoch = epoch
@@ -254,10 +271,12 @@ class DeviceRecallEngine:
             # never selected either way)
             grow["created_hours"][old:] = (ca[old:] - origin_h).astype(np.float32)
             self._meta_host, self._created_abs = grow, ca
+            self._row_memory.extend([None] * (cap - old))
             meta = grow
         fb = self.system.feedback
         new_rows: list[int] = []
         mem_cache: dict[str, object] = {}
+        refilled: set[str] = set()
         for r in range(self._built_hwm, min(hwm, cap)):
             mid = storage.memory_for_row(r)
             if mid is None:
@@ -273,6 +292,13 @@ class DeviceRecallEngine:
             _fill_row(meta, r, mem, fb.momentum(mem.id) if fb is not None else 0.0)
             self._created_abs[r] = _hours_since_epoch(mem.created_at)
             meta["created_hours"][r] = np.float32(self._created_abs[r] - origin_h)
+            # a memory's rows are allocated together, after every older row:
+            # its first new row replaces what the map held for it
+            if mid not in refilled:
+                refilled.add(mid)
+                self._rows_of[mid] = []
+            self._rows_of[mid].append(r)
+            self._row_memory[r] = mid
             new_rows.append(r)
         if cap != int(self._meta_dev["importance"].shape[0]):
             self._upload(meta)  # capacity changed: one full upload
@@ -312,14 +338,19 @@ class DeviceRecallEngine:
 
     def _leg_rows(self, scores, cap: int) -> dict[int, float]:
         """(memory id, score) pairs -> {text row: max score} over each
-        memory's rows."""
+        memory's valid rows, from the engine's row map."""
         hits: dict[int, float] = {}
-        vector_map = self.system.storage.get_vector_map
+        rows_of = self._rows_of
+        valid = self.system.index._valid_np
         for mid, score in scores:
-            for r in vector_map(mid).get("text", []):
-                if r < cap:
+            for r in rows_of.get(mid, ()):
+                if r < cap and valid[r]:
                     hits[r] = max(hits.get(r, 0.0), score)
         return hits
+
+    def _memory_of_row(self, row: int) -> Optional[str]:
+        """The memory holding text row ``row``, from the engine's row map."""
+        return self._row_memory[row]
 
     def _query_legs(self, text: str, k: int, cap: int, now: datetime):
         """The sparse BM25 and graph legs of one query as {row: score}."""
@@ -346,8 +377,10 @@ class DeviceRecallEngine:
         return arrays[:3]
 
     def invalidate(self) -> None:
-        """Force a mirror rebuild (call after maintenance/feedback sweeps)."""
+        """Force a mirror rebuild (call after maintenance/feedback sweeps);
+        the row maps drop with the mirrors."""
         self._built_rows = -1
+        self._rows_of, self._row_memory = {}, []
 
     # -- recall -------------------------------------------------------------------
 
@@ -473,11 +506,11 @@ class DeviceRecallEngine:
         rows = rows.cpu().numpy()
         out: list[tuple[str, float, Optional[float]]] = []
         seen: set[str] = set()
-        memory_for_row = system.storage.memory_for_row
+        memory_of_row = self._memory_of_row
         for i in range(len(vals)):
             if vals[i] <= -1e29:
                 continue
-            mid = memory_for_row(int(rows[i]))
+            mid = memory_of_row(int(rows[i]))
             if mid is None or mid in seen:
                 continue  # chunk dedup: per-memory factors are row-constant,
                 # so the first (best-final) row is also the max-cos row
@@ -492,7 +525,7 @@ class DeviceRecallEngine:
         for v, r in zip(vals, rows):
             if v <= -1e29:
                 continue
-            mid = self.system.storage.memory_for_row(int(r))
+            mid = self._memory_of_row(int(r))
             if mid is None or mid in seen:
                 continue  # chunk dedup: keep max-sim row only
             seen.add(mid)

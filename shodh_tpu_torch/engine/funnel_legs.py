@@ -23,10 +23,15 @@ from datetime import datetime
 from typing import Optional
 
 from shodh_tpu_torch import constants as C
+from shodh_tpu_torch.engine.rank_pool import rank_pool
+from shodh_tpu_torch.engine.semantics import base_embedder
+from shodh_tpu_torch.harness import diagnostics as _diag
+from shodh_tpu_torch.models.hash_embedder import content_stems
+from shodh_tpu_torch.nlp.stemmer import stem
 from shodh_tpu_torch.retrieval.bm25 import CLASS_DIALOGUE, CLASS_NOTES
 from shodh_tpu_torch.retrieval.bm25 import tokenize as bm25_tokenize
 from shodh_tpu_torch.storage.store import SearchCriteria
-from shodh_tpu_torch.types import ExperienceType, LayerMode
+from shodh_tpu_torch.types import ExperienceType, LayerMode, RecallResult
 
 _ENUM_STOP_PLURALS = frozenset(
     "does was has is status news as its this thats".split()
@@ -180,13 +185,11 @@ def plan_bm25_query(system, query, analysis, seeds, pool_k: int, n_qvecs: int, d
     """The BM25 query string, its per-term weights and its depth (shared by
     the staged host funnel and the device funnel). Graph-driven cue
     expansion (``SHODH_GRAPH_CUE_EXPANSION=1``) appends the seeds' strongest
-    1-hop bridge entities as weighted extra terms.
-
-    The JAX package also appends semantic-expansion terms when its embedder
-    carries a fitted semantic model (``_sem_model``, gated by the
-    ``sem_expansion`` boost family in ``disabled``); the port's hash
-    embedder carries none yet, so that branch waits for
-    ``adapt_semantics`` (ROADMAP.md)."""
+    1-hop bridge entities as weighted extra terms. When the embedder
+    carries a fitted corpus semantic model (``engine/semantics.py``
+    ``adapt_semantics``), the co-occurrence neighbors of the query's content
+    stems join as low-weight extra terms (boost family ``sem_expansion``;
+    not on date-anchored queries)."""
     term_weights = analysis.ic_weights if analysis is not None else None
     bm25_k = pool_k * (C.POLAR_QUERY_BM25_POOL_MULTIPLIER if n_qvecs > 1 else 1)
     bm25_query = query.query_text
@@ -202,6 +205,26 @@ def plan_bm25_query(system, query, analysis, seeds, pool_k: int, n_qvecs: int, d
             for b_name in bridges:
                 for tok in bm25_tokenize(b_name):
                     term_weights.setdefault(tok, C.GRAPH_CUE_TERM_WEIGHT)
+    sem_model = getattr(base_embedder(system), "_sem_model", None)
+    if (
+        sem_model is not None
+        and "sem_expansion" not in disabled
+        # date-anchored queries already carry a hard prefilter
+        and (analysis is None or analysis.date_range is None)
+    ):
+        expansions = sem_model.expansion_terms(
+            list(dict.fromkeys(content_stems(query.query_text))),
+            per_stem=C.SEM_EXPANSION_PER_STEM,
+            min_sim=C.SEM_EXPANSION_MIN_SIM,
+            max_terms=C.SEM_EXPANSION_MAX_TERMS,
+        )
+        # Only idempotent stems survive the query re-tokenization.
+        expansions = [(t, s) for t, s in expansions if stem(t) == t]
+        if expansions:
+            bm25_query = bm25_query + " " + " ".join(t for t, _ in expansions)
+            term_weights = dict(term_weights or {})
+            for t, sim in expansions:
+                term_weights.setdefault(t, C.SEM_EXPANSION_TERM_WEIGHT * sim)
     return bm25_query, term_weights, bm25_k
 
 
@@ -221,6 +244,7 @@ class FunnelLegs:
     bm25_k: int
     companion_gate: bool
     timings: dict = field(default_factory=dict)
+    t_start: float = 0.0  # host clock at the start of the call
 
 
 def funnel_legs(system, query, k: int, now: datetime) -> Optional[FunnelLegs]:
@@ -378,7 +402,7 @@ def funnel_legs(system, query, k: int, now: datetime) -> Optional[FunnelLegs]:
         args=(qvecs, bm25_scores, graph_activation), kwargs=kwargs, analysis=analysis,
         disabled=disabled, temporal_ids=temporal_ids, bm25_query=bm25_query,
         term_weights=term_weights, bm25_k=bm25_k, companion_gate=companion_gate,
-        timings=timings,
+        timings=timings, t_start=t_start,
     )
 
 
@@ -396,3 +420,60 @@ def device_funnel_pool(system, engine, query, k: int, now: datetime):
         return None
     legs.timings["device_pool_ms"] = (time.perf_counter() - t0) * 1000
     return pool, legs
+
+
+def device_funnel_recall(system, engine, query, k: int, now: datetime) -> Optional[RecallResult]:
+    """One plain hybrid text query through the device funnel to its ranked
+    answer (port of the JAX package's ``_device_funnel_recall``): the legs,
+    ``engine.recall_pool``, then :func:`rank_funnel_pool`. None exactly
+    where the reference falls through to the staged funnel (a fusion-variant
+    env, an A/B assignment, the enumeration day-bucket union, or a pool the
+    program cannot serve).
+
+    One deliberate difference: the reference swallows any exception of the
+    pool call and serves the staged funnel instead; here a device error
+    reaches the caller, as in ``device_funnel_pool``."""
+    out = device_funnel_pool(system, engine, query, k, now)
+    if out is None:
+        return None
+    return rank_funnel_pool(system, query, k, *out)
+
+
+def rank_funnel_pool(system, query, k: int, pool, legs: FunnelLegs) -> RecallResult:
+    """The epilogue of the device funnel over a pool of ``recall_pool``
+    (memory id, fused, cosine or None) and the legs it was proposed from:
+    ``rank_pool`` with the legs' fields, every result attributed
+    ``device_funnel = 1.0``. Adds the epilogue's stages to ``legs.timings``."""
+    fused = {mid: f for mid, f, _ in pool}
+    mem_scores = {mid: c for mid, _, c in pool if c is not None}
+    if _diag.is_armed():
+        _diag.observe_stage(
+            "vector",
+            [m for m, _ in sorted(mem_scores.items(), key=lambda kv: (-kv[1], kv[0]))],
+        )
+    _, bm25_scores, graph_activation = legs.args
+    result = rank_pool(
+        system,
+        query=query,
+        k=k,
+        now=legs.kwargs["now"],
+        t_start=legs.t_start,
+        t_fusion_start=time.perf_counter(),
+        timings=legs.timings,
+        analysis=legs.analysis,
+        disabled=legs.disabled,
+        companion_gate=legs.companion_gate,
+        overrides=None,
+        fused=fused,
+        mem_scores=mem_scores,
+        bm25_scores=bm25_scores,
+        graph_activation=graph_activation,
+        temporal_ids=legs.temporal_ids,
+        bm25_query=legs.bm25_query,
+        term_weights=legs.term_weights,
+        bm25_k=legs.bm25_k,
+        diagnostics=False,
+    )
+    for sm in result.memories:
+        sm.attribution["device_funnel"] = 1.0
+    return result

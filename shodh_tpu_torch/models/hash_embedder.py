@@ -13,9 +13,12 @@ Encoding is host numpy: each text activates ~10^2 buckets, so a text's
 vector is a gather and a weighted sum of that many projection rows — too
 small an operation to pay a device dispatch.
 
-The reference's optional corpus-adaptive semantic model and adjacency warp
-(``set_semantic_model``, ``set_adjacency_metric``) are not ported here;
-without them its output is this embedder's.
+Optionally blends a corpus-adaptive distributional component
+(``models/semantic_model.py``) into the same space,
+``normalize(hash_vec + weight * Q @ sem_vec)`` with Q's columns orthonormal
+(seeded QR); at weight 0 (the default) the model is only carried for the
+BM25 plan's semantic expansion and the output is the pure hash embedder's.
+The reference's adjacency warp (``set_adjacency_metric``) is not ported.
 """
 
 from __future__ import annotations
@@ -104,6 +107,30 @@ class HashEmbedder:
         rng = np.random.default_rng(seed)
         # JL projection: N(0, 1/sqrt(dim)); fixed for the life of the format.
         self._proj = (rng.standard_normal((_BUCKETS, dim)) / np.sqrt(dim)).astype(np.float32)
+        self._sem_model = None
+        self._sem_weight = 0.0
+        self._sem_basis: np.ndarray | None = None  # (dim, sem_dim) orthonormal cols
+
+    def set_semantic_model(self, model, weight: float) -> None:
+        """Attach (or detach with ``model=None``) a fitted semantic model.
+
+        Changes ``name`` so SHA-keyed embedding caches miss stale entries.
+        """
+        if model is None:
+            self._sem_model = None
+            self._sem_weight = 0.0
+            self._sem_basis = None
+            self.name = "hash-projection-v1"
+            return
+        rng = np.random.default_rng(_SEED ^ 0xA5A5)
+        g = rng.standard_normal((self.dimension, model.dim)).astype(np.float32)
+        q, _ = np.linalg.qr(g)  # (dim, sem_dim) orthonormal columns
+        self._sem_basis = np.ascontiguousarray(q[:, : model.dim], np.float32)
+        self._sem_model = model
+        self._sem_weight = float(weight)
+        self.name = (
+            f"hash-projection-v1+sem{model.corpus_fingerprint[:8]}w{weight:g}"
+        )
 
     def encode(self, text: str) -> np.ndarray:
         return self.encode_batch([text])[0]
@@ -123,4 +150,10 @@ class HashEmbedder:
             w = np.fromiter(f.values(), np.float32, len(f))
             out[i] = w @ self._proj[idx]  # (nnz,) @ (nnz, dim) BLAS matvec
         norms = np.linalg.norm(out, axis=1, keepdims=True)
-        return (out / np.maximum(norms, 1e-12)).astype(np.float32)
+        out = (out / np.maximum(norms, 1e-12)).astype(np.float32)
+        if self._sem_model is not None and self._sem_weight > 0.0:
+            sem = np.stack([self._sem_model.text_vec(t) for t in texts])
+            out = out + self._sem_weight * (sem @ self._sem_basis.T)
+            norms = np.linalg.norm(out, axis=1, keepdims=True)
+            out = (out / np.maximum(norms, 1e-12)).astype(np.float32)
+        return out

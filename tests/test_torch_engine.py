@@ -343,3 +343,113 @@ def test_chip_smoke_engine_phase_matches_reference(tmp_path):
             _pool_same(port.recall_pool(*args, **kwargs), ref.recall_pool(*args, **kwargs))
     ref_storage.close()
     holder.storage.close()
+
+
+# ---------------------------------------------------------------------------
+# The engine's row map against the store's lookups
+# ---------------------------------------------------------------------------
+
+
+class StoreLookupEngine(DeviceRecallEngine):
+    """The engine reading the store for every memory -> rows and row ->
+    memory lookup, the path the row map replaces: the oracle of the row-map
+    tests."""
+
+    def _leg_rows(self, scores, cap: int) -> dict:
+        hits: dict = {}
+        vector_map = self.system.storage.get_vector_map
+        for mid, score in scores:
+            for r in vector_map(mid).get("text", []):
+                if r < cap:
+                    hits[r] = max(hits.get(r, 0.0), score)
+        return hits
+
+    def _memory_of_row(self, row: int):
+        return self.system.storage.memory_for_row(row)
+
+
+ROW_MAP_STEPS = ("append", "delete", "compaction", "capacity")
+
+
+def _ingest_legs(holder, mems) -> None:
+    cs.ingest_bm25(holder, mems)
+    cs.ingest_graph(holder.graph, mems)
+
+
+def row_map_store(tmp_path, step: str, monkeypatch):
+    """A chip-script store of 200 memories with their BM25 and graph legs,
+    its engine's mirrors built, then one step: 30 more memories (append), 10
+    memories forgotten without a rebuild (delete), 40% of them forgotten and
+    the index compacted with its rows remapped (compaction), or 80 more
+    across the capacity quantum of 256 rows (capacity). Returns (holder, the engine
+    built before the step, every memory id the step has seen, deleted ones
+    too)."""
+    import shodh_tpu_torch.index.device_index as port_index_mod
+
+    monkeypatch.setattr(port_index_mod, "INDEX_CAPACITY_QUANTUM", 256)
+    holder = cs.engine_holder(tmp_path, "cpu")
+    mems = _grow(holder, 200, seed=11, first=0)
+    _ingest_legs(holder, mems)
+    eng = DeviceRecallEngine(holder)
+    eng.mirrors()
+    if step in ("append", "capacity"):
+        more = _grow(holder, 30 if step == "append" else 80, seed=12, first=200)
+        _ingest_legs(holder, more)
+        assert (holder.index.capacity > 256) == (step == "capacity")
+        mems += more
+    else:
+        victims = mems[::20] if step == "delete" else mems[::5] + mems[1::5]
+        for m in victims:  # the JAX package's forget, with the graph left as it is
+            holder.index.delete_rows(holder.storage.get_vector_map(m.id)["text"])
+            holder.bm25.delete(m.id)
+            holder.storage.delete(m.id)
+        if step == "compaction":
+            mapping = holder.index.maybe_compact()
+            assert mapping is not None
+            holder.storage.remap_rows(mapping, epoch=holder.index.epoch)
+    return holder, eng, [m.id for m in mems]
+
+
+def _engine_outputs(eng, calls, texts) -> list:
+    """The legs' dense planes and every output of recall_pool, recall and
+    recall_batch for the same inputs."""
+    cap = eng.system.index.capacity
+    out = []
+    for (qvecs, bm25, graph), kwargs in calls:
+        out += [eng._scatter_leg_dev(eng._leg_rows(leg.items(), cap), cap) for leg in (bm25, graph)]
+        out.append(eng.recall_pool(qvecs, bm25, graph, **kwargs))
+    out += [eng.recall(t, cs.ENGINE_K, cs.engine_now()) for t in texts]
+    out.append(eng.recall_batch(texts, cs.ENGINE_K, cs.engine_now()))
+    return out
+
+
+def assert_engines_equal(eng, oracle, ids, texts) -> None:
+    """Every output bit for bit, with no store lookup on the map engine's
+    side once its mirrors are up to date."""
+    holder = eng.system
+    calls = cs.pool_calls(holder, ids, 4, False, seed=13) + cs.pool_calls(holder, ids, 2, True,
+                                                                          seed=14)
+    eng.mirrors()
+    lookups = [cs.timed_calls(holder.storage, name) for name in ("get_vector_map",
+                                                                 "memory_for_row")]
+    try:
+        got = _engine_outputs(eng, calls, texts)
+    finally:
+        del vars(holder.storage)["get_vector_map"], vars(holder.storage)["memory_for_row"]
+    assert [n for n, _ in lookups] == [0, 0]
+    want = _engine_outputs(oracle, calls, texts)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) if isinstance(g, torch.Tensor) else g == w
+
+
+@pytest.mark.parametrize("step", ROW_MAP_STEPS)
+def test_row_map_equals_store_lookups(tmp_path, monkeypatch, step):
+    holder, eng, ids = row_map_store(tmp_path, step, monkeypatch)
+    texts = cs.leg_queries(6, 15) + cs.query_texts(4, 16)
+    assert_engines_equal(eng, StoreLookupEngine(holder), ids, texts)
+    if step == "delete":  # stale map entries of forgotten memories stay until a rebuild
+        gone = [m for m in ids if holder.storage.get(m) is None]
+        assert gone and all(eng._rows_of[m] for m in gone)
+    holder.graph.close()
+    holder.storage.close()

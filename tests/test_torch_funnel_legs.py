@@ -13,8 +13,10 @@ directory with its own ``BM25Index``, ``GraphMemory`` (``device="cpu"``) and
 arguments, replaying the recorded ingest into an empty port store must give
 the reference's ``bm25.db``, ``graph.db`` and context pointers, and the port
 engine's ``recall`` must equal the reference engine's now that its legs are
-real. The semantic-expansion branch of the BM25 plan is not ported yet, so
-the reference runs with ``SHODH_ADAPTIVE_SEMANTICS=0``."""
+real. The reference runs with ``SHODH_ADAPTIVE_SEMANTICS=0``: the semantic
+expansion of the BM25 plan is held to the reference in
+``test_torch_semantics.py`` and ``test_torch_funnel_recall.py``, over a store
+large enough to fit a model."""
 
 import sqlite3
 from datetime import datetime, timedelta, timezone
@@ -48,6 +50,7 @@ from shodh_tpu_torch.nlp.query_parser import QueryParser
 from shodh_tpu_torch.retrieval.bm25 import BM25Index
 from shodh_tpu_torch.storage.store import MemoryStorage
 from shodh_tpu_torch.types import Memory, Query
+from test_torch_engine import ROW_MAP_STEPS, StoreLookupEngine, row_map_store
 
 NOW_ISO = "2023-06-01T12:00:00+00:00"
 NOW = datetime(2023, 6, 1, 12, tzinfo=timezone.utc)
@@ -385,11 +388,49 @@ def test_port_engine_recall_equals_reference_engine(served):
     ref_storage.close()
 
 
+@pytest.mark.parametrize("step", ROW_MAP_STEPS)
+def test_device_funnel_pool_row_map_equals_store_lookups(tmp_path, monkeypatch, step):
+    """The funnel's real legs (BM25, the graph through DeviceSpreader) over a
+    chip-script store after each step of ``row_map_store``: the legs' dense
+    planes and every pool the same through the engine's row map as through
+    the store's lookups, bit for bit."""
+    import chip_smoke as cs
+    import torch
+
+    from shodh_tpu_torch.retrieval.bm25 import tokenize
+
+    holder, eng, _ = row_map_store(tmp_path, step, monkeypatch)
+    oracle = StoreLookupEngine(holder)
+    monkeypatch.setenv("SHODH_EVAL_NOW", cs.engine_now().isoformat())
+    monkeypatch.setattr(port_constants, "SPREADING_DEVICE_MIN_ENTITIES", 0)
+    now, k = cs.engine_now(), cs.ENGINE_K
+    postings = holder.bm25._postings
+    texts = cs.leg_queries(8, 17, known=lambda e: all(t in postings for t in tokenize(e)))
+    graph_rows = 0
+    for t in texts:
+        pool, legs = fl.device_funnel_pool(holder, eng, Query(query_text=t, max_results=k), k, now)
+        want, want_legs = fl.device_funnel_pool(holder, oracle, Query(query_text=t, max_results=k),
+                                                k, now)
+        assert legs.args[1:] == want_legs.args[1:]
+        cap = holder.index.capacity
+        for leg in legs.args[1:]:
+            rows = eng._leg_rows(leg.items(), cap)
+            assert torch.equal(eng._scatter_leg_dev(rows, cap),
+                               oracle._scatter_leg_dev(oracle._leg_rows(leg.items(), cap), cap))
+        graph_rows += len(legs.args[2])
+        assert pool == want
+    assert graph_rows > 0 and holder.graph._device_spreader_inst is not None
+    holder.graph.close()
+    holder.storage.close()
+
+
 def test_chip_smoke_legs_phase_on_the_cpu(tmp_path, monkeypatch):
     """The chip script's engine and legs phases at a small size on the CPU,
     the graph leg forced through DeviceSpreader: every check of the phase
     holds (spreads against a second export, pools against a second engine,
-    the native scorer on every BM25 leg)."""
+    ranked answers against the epilogue over its pools, the native scorer on
+    every BM25 search), PRF, learned fusion and the companion re-rank run,
+    and no store lookup maps legs or rows."""
     import chip_smoke as cs
 
     monkeypatch.setattr(port_constants, "SPREADING_DEVICE_MIN_ENTITIES", 0)
@@ -397,13 +438,17 @@ def test_chip_smoke_legs_phase_on_the_cpu(tmp_path, monkeypatch):
                                            n_in_place=8, n_timed=0)
     assert rec["bm25_docs"] == rec["rows"] == 648 and holder.bm25._native is not None
     assert rec["graph_entities"] > 300 and rec["graph_edges"] > rec["graph_entities"]
+    assert rec["semantics"]["semantic_vocab"] >= 64 and rec["semantics"]["temporal_facts"] > 0
     legs = cs.phase_legs(tmp_path, holder, engines, device="cpu", n_calls=12)
     assert legs["graph_leg"] == "DeviceSpreader" and legs["spreads"] >= 10
-    assert legs["native_searches"] == legs["bm25_searches"] == 12
-    assert legs["checked_vs_cpu"] == {"spreads": legs["spreads"], "pools": 12}
+    armed = legs["armed_calls"]
+    assert armed["learned"] == 12 and armed["prf"] > 0 and armed["companion"] > 0
+    assert legs["native_searches"] == legs["bm25_searches"] == 12 + armed["prf"]
+    assert legs["checked_vs_cpu"] == {"spreads": legs["spreads"], "pools": 12, "answers": 12}
     assert legs["rebuilds_during_calls"] == 0 and legs["leg_sizes"]["graph"]["max"] > 0
-    assert set(legs["stage_ms"]) == {"analyze_ms", "embed_ms", "graph_ms", "bm25_ms",
-                                     "device_pool_ms", "call_ms"}
+    assert set(legs["stage_ms"]) == set(cs.LEG_STAGES) | {"call_ms"}
+    assert legs["row_maps_per_call"]["get_vector_map"]["calls"] == 0
+    assert legs["row_maps_per_call"]["memory_for_row"]["calls"] == 0
     assert not {"get_vector_map", "memory_for_row"} & set(vars(holder.storage))  # unwrapped
     holder.graph.close()
     holder.storage.close()

@@ -46,6 +46,16 @@ PORT_MODULES = [
     "shodh_tpu_torch.engine.decay",
     "shodh_tpu_torch.engine.device_funnel",
     "shodh_tpu_torch.engine.funnel_legs",
+    "shodh_tpu_torch.engine.tiers",
+    "shodh_tpu_torch.engine.facts",
+    "shodh_tpu_torch.engine.temporal_facts",
+    "shodh_tpu_torch.engine.companion",
+    "shodh_tpu_torch.engine.semantics",
+    "shodh_tpu_torch.engine.rank_pool",
+    "shodh_tpu_torch.harness.diagnostics",
+    "shodh_tpu_torch.retrieval.fusion",
+    "shodh_tpu_torch.retrieval.learned_fusion",
+    "shodh_tpu_torch.models.semantic_model",
     "shodh_tpu_torch.nlp.normalize",
     "shodh_tpu_torch.nlp.norms",
     "shodh_tpu_torch.nlp.lemmas",
@@ -71,7 +81,8 @@ _FORBIDDEN = re.compile(
 
 def _port_sources():
     files = sorted((ROOT / "shodh_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_search.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_search.py",
+        ROOT / "tools" / "torch_legs_ab.py"]
     assert len(files) >= 10
     return files
 
@@ -84,7 +95,7 @@ def test_every_port_module_is_listed():
     assert found - subpackages - {"shodh_tpu_torch"} <= set(PORT_MODULES)
     assert {"shodh_tpu_torch.storage", "shodh_tpu_torch.engine", "shodh_tpu_torch.nlp",
             "shodh_tpu_torch.models", "shodh_tpu_torch.utils", "shodh_tpu_torch.graph",
-            "shodh_tpu_torch.retrieval"} <= subpackages
+            "shodh_tpu_torch.retrieval", "shodh_tpu_torch.harness"} <= subpackages
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -142,7 +153,9 @@ def test_constants_equal_reference(name):
 
 
 _CALL_TIME = ("disabled_boosts", "context_index_weight", "context_forward_weight",
-              "context_index_weight2", "context_index_weight3", "context_forward_weight2")
+              "context_index_weight2", "context_index_weight3", "context_forward_weight2",
+              "recall_readonly", "prf_enabled", "prf_ungated", "prf_multihop",
+              "prf_any_nontemporal", "semantic_adapt_enabled", "semantic_blend_weight")
 
 
 @pytest.mark.parametrize("name", _CALL_TIME)
@@ -153,7 +166,10 @@ def test_call_time_knobs_equal_reference(name, monkeypatch):
                        ("SHODH_CONTEXT_INDEX_WEIGHT", "0.5"), ("SHODH_CONTEXT_FWD_WEIGHT", "0"),
                        ("SHODH_CONTEXT_INDEX_WEIGHT2", "0.125"),
                        ("SHODH_CONTEXT_INDEX_WEIGHT3", "0.2"),
-                       ("SHODH_CONTEXT_FWD_WEIGHT2", "0.3")):
+                       ("SHODH_CONTEXT_FWD_WEIGHT2", "0.3"), ("SHODH_RECALL_READONLY", "yes"),
+                       ("SHODH_PRF", "0"), ("SHODH_PRF_UNGATED", "on"),
+                       ("SHODH_PRF_MULTIHOP", "true"), ("SHODH_PRF_ANY_NONTEMPORAL", "off"),
+                       ("SHODH_ADAPTIVE_SEMANTICS", "0"), ("SHODH_SEM_WEIGHT", "0.25")):
         monkeypatch.setenv(var, value)
     assert getattr(port_constants, name)() == getattr(ref_constants, name)()
 
@@ -171,17 +187,26 @@ def test_env_overrides_match_reference():
                          capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["0.25", "0.5", "0.125", "0.9", "0.4", "1.5", "0.6", "False",
-                                  "True", "0.75", "0.2"]
+                                  "True", "0.75", "0.2", "2", "7", "4", "0.45", "32", "0.25",
+                                  "500", "5", "0.5", "6", "0.125"]
 
 
 _ENV_NAMES = ("SPEAKER_MATCH_BOOST", "SEEK_TEMPORAL_REFS_BOOST", "ANSWER_TYPE_BOOST",
               "BM25_K1_DIALOGUE", "BM25_B_DIALOGUE", "BM25_K1_NOTES", "BM25_B_NOTES", "SPELLFIX",
-              "GRAPH_PMI_GATE", "GRAPH_PMI_GATE_MIN", "TEMPORAL_SEEK_RECENCY_SCALE")
+              "GRAPH_PMI_GATE", "GRAPH_PMI_GATE_MIN", "TEMPORAL_SEEK_RECENCY_SCALE",
+              "TEMPORAL_DIVERSITY_CAP", "PRF_TOP_DOCS", "PRF_TERMS", "PRF_TERM_WEIGHT",
+              "SEMANTIC_REFIT_MIN_ABS", "SEMANTIC_REFIT_FRAC", "SEMANTIC_FIT_MAX_TEXTS",
+              "SEM_EXPANSION_PER_STEM", "SEM_EXPANSION_MIN_SIM", "SEM_EXPANSION_MAX_TERMS",
+              "SEM_EXPANSION_TERM_WEIGHT")
 _ENV_OVERRIDES = dict(
     SHODH_SPEAKER_MATCH_BOOST="0.25", SHODH_SEEK_TREFS_BOOST="0.5",
     SHODH_ANSWER_TYPE_BOOST="0.125", SHODH_BM25_K1="0.9", SHODH_BM25_B="0.4",
     SHODH_BM25_K1_NOTES="1.5", SHODH_BM25_B_NOTES="0.6", SHODH_SPELLFIX="0",
-    SHODH_GRAPH_PMI_GATE="1", SHODH_GRAPH_PMI_GATE_MIN="0.75", SHODH_SEEK_RECENCY_SCALE="0.2")
+    SHODH_GRAPH_PMI_GATE="1", SHODH_GRAPH_PMI_GATE_MIN="0.75", SHODH_SEEK_RECENCY_SCALE="0.2",
+    SHODH_DIVERSITY_CAP="2", SHODH_PRF_TOP_DOCS="7", SHODH_PRF_TERMS="4", SHODH_PRF_WEIGHT="0.45",
+    SHODH_SEM_REFIT_ABS="32", SHODH_SEM_REFIT_FRAC="0.25", SHODH_SEM_FIT_MAX_TEXTS="500",
+    SHODH_SEM_EXP_PER_STEM="5", SHODH_SEM_EXP_MIN_SIM="0.5", SHODH_SEM_EXP_MAX_TERMS="6",
+    SHODH_SEM_EXP_WEIGHT="0.125")
 
 
 def test_precision_is_full_f32():
