@@ -48,7 +48,21 @@ Phases, each printing one JSON line:
    armed PRF, learned fusion and the companion re-rank; every spread held to
    a CPU export, every pool to the engine over a CPU copy of the index and
    every ranked answer to the epilogue over that pool;
-8. the ``kernels`` line: launches on the main path, errors and times.
+8. ``system``: the store made into one ``MemorySystem`` opens quietly (its
+   index snapshot and kv markers), then a ``MemorySystem`` on the card over
+   it, then a CPU twin in a process of its own over a copy (both under
+   ``PYTHONHASHSEED=0``, to which the script re-executes itself): 1,024
+   seeded experiences without entities
+   through ``batch_remember`` on both (the NER, gazetteer, sessions,
+   interference through K1's batched search, replay, lineage), the host
+   seconds of each ``remember`` step, K1's launches; the stores compared kv
+   row by kv row, the index's host arrays and the row mirrors' incremental
+   fill held to a full build; 48 plain recalls with usage writes held to the
+   twin's; ``flush``, a forced refit of the semantic model, ``save``,
+   ``close`` and a reopen of both with one recall compared; and K1 at the
+   ingest's shape (B=8 over the phase's index) against its plain version,
+   with its time, bound and library time;
+9. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
@@ -68,6 +82,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import uuid
 
 import numpy as np
 
@@ -1542,6 +1557,528 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: MemorySystem over the engine phase's store
+# ---------------------------------------------------------------------------
+
+# Experiences remembered through MemorySystem.batch_remember. Each costs
+# 54-67 ms on the host at this store's size, most of it the native BM25
+# scorer's remove walk (R6), on the card's side and again on the twin's, which
+# runs after the card's timed ingest and recalls: 1,024 keeps the script inside
+# its time limit (4,096 took 222 s on the card's side alone)
+N_SYSTEM = 1024
+SYSTEM_CALL = 64  # experiences per batch_remember call: 8 ingest chunks of 8
+SYSTEM_SEED = 8191  # the session ids' seeded sequence
+SYSTEM_RECALLS = 48  # plain recalls with usage writes, 8 of each leg shape
+DBS = ("memories.db", "bm25/bm25.db", "graph/graph.db")  # a store's kv databases
+PIVOTS = ("we should pivot to a new strategy for the", "time to start fresh with the",
+          "scrap this plan, a complete rewrite of the")
+# the host steps of remember, each timed by a spy on the card's system:
+# (name, attribute of the system, method)
+INGEST_STEPS = (("ner", "ner", "extract"), ("gazetteer", "gazetteer", "extract_toponyms"),
+                ("temporal_refs", "query_parser", "extract_temporal_refs"),
+                ("sessions", "sessions", "track"), ("store", "storage", "store"),
+                ("graph", "graph", "ingest_experience"),
+                ("temporal_facts", "temporal_facts", "extract_and_store"),
+                ("interference", "interference", "on_store_batch"),
+                ("interference_search", "index", "search"), ("index_flush", "index", "flush"),
+                ("replay", "replay", "register"), ("lineage", "lineage", "infer_for_memory"),
+                ("lineage_pivot", "lineage", "maybe_branch_on_pivot"))
+
+
+def system_calls(n: int, seed: int, stored: list, start) -> list:
+    """``n`` seeded conversation experiences in ``batch_remember`` calls of
+    ``SYSTEM_CALL``, each with its time (5-40 minutes apart from ``start``):
+    turns of the phase's vocabulary with a speaker and 1-2 names of the
+    entity draw, and **no entities** (the NER finds them); tags set; one in
+    twelve names a city (the gazetteer), one in eighty carries pivot
+    language (lineage branches), one in twenty repeats a stored text with a
+    word more (interference with an old row), one in twenty repeats the
+    previous turn with a word more (interference inside a chunk), and one in
+    fifty repeats a stored or an earlier text exactly (the dedup branch)."""
+    from datetime import timedelta
+
+    from shodh_tpu_torch.types import Experience, ExperienceType
+
+    r = np.random.default_rng(seed)
+    calls, made, at = [], [], start
+    for lo in range(0, n, SYSTEM_CALL):
+        at = at + timedelta(minutes=int(r.integers(5, 41)))
+        batch = []
+        for i in range(lo, min(n, lo + SYSTEM_CALL)):
+            u = r.random()
+            if u < 0.02:
+                text = (made[int(r.integers(0, len(made)))] if made and u < 0.01
+                        else stored[int(r.integers(0, len(stored)))])
+            elif u < 0.07:
+                text = stored[int(r.integers(0, len(stored)))] + " again"
+            elif u < 0.12 and made:
+                text = made[-1] + " too"
+            else:
+                words = " ".join(r.choice(WORDS, int(r.integers(5, 14))))
+                names = " and ".join(draw_entities(r, int(r.integers(1, 3))))
+                if i % 80 == 7:
+                    text = f"{PIVOTS[i % len(PIVOTS)]} {words} with {names}"
+                elif i % 12 == 5:
+                    text = f"{words} with {names} in {CITIES[i % len(CITIES)]} {i}"
+                else:
+                    text = f"{words} with {names} {i}"
+                text = f"{NAMES[i % len(NAMES)]}: {text}"
+            made.append(text)
+            batch.append(Experience(content=text, experience_type=ExperienceType.CONVERSATION,
+                                    tags=[TAGS[i % len(TAGS)]]))
+        calls.append((at, batch))
+    return calls
+
+
+class _KindCounts(list):
+    """``InterferenceEngine.events`` that counts every event by kind; the
+    engine trims the list by slicing, and a slice keeps the counts."""
+
+    def __init__(self, items=(), counts=None):
+        from collections import Counter
+
+        super().__init__(items)
+        self.counts = Counter() if counts is None else counts
+
+    def append(self, event) -> None:
+        self.counts[event["kind"]] += 1
+        super().append(event)
+
+    def __getitem__(self, i):
+        out = super().__getitem__(i)
+        return _KindCounts(out, self.counts) if isinstance(i, slice) else out
+
+
+def _mirror_drift(a: dict, b: dict) -> dict:
+    """Mirror name -> the rows where two sets of mirrors differ."""
+    import torch
+
+    out = {}
+    for k in b:
+        x, y = a[k], b[k].to(a[k].device)
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"system: mirror {k} changed shape or type")
+        ne = (x != y).reshape(x.shape[0], -1).any(dim=1)
+        if bool(ne.any()):
+            out[k] = set(torch.nonzero(ne).flatten().tolist())
+    return out
+
+
+def make_store_quiet(holder, root) -> None:
+    """Write what a ``MemorySystem`` keeps beside the engine phase's store
+    (the index snapshot at ``index/text``, ``meta/index_epoch``, the text-rows
+    high-water mark and ``meta/lexical_fp``), then close the holder's store,
+    BM25 index and graph."""
+    from pathlib import Path
+
+    from shodh_tpu_torch.retrieval.bm25 import lexical_fingerprint
+
+    holder.index.save(Path(root) / "index" / "text")
+    storage = holder.storage
+    storage.kv.put("meta", "index_epoch", str(holder.index.epoch).encode())
+    storage.set_text_rows_hwm(len(holder.index))
+    storage.kv.put("meta", "lexical_fp", lexical_fingerprint().encode())
+    holder.bm25.flush()
+    holder.bm25.kv.close()
+    holder.graph.close()
+    storage.close()
+
+
+def open_quietly(path, device):
+    """``MemorySystem(path)`` on ``device``; fails if the open ran crash
+    recovery or the lexical migration (either re-embeds the whole store).
+    Returns (the system, the open's seconds)."""
+    from shodh_tpu_torch.engine.memory_system import MemorySystem
+
+    healed = []
+    orig = {name: getattr(MemorySystem, name) for name in ("rebuild_index", "migrate_lexical")}
+
+    def spy(name):
+        def wrapped(self, *args, **kwargs):
+            healed.append(name)
+            return orig[name](self, *args, **kwargs)
+        return wrapped
+
+    t0 = time.perf_counter()
+    try:
+        for name in orig:
+            setattr(MemorySystem, name, spy(name))
+        system = MemorySystem(path, device=device)
+    finally:
+        for name, fn in orig.items():
+            setattr(MemorySystem, name, fn)
+    seconds = time.perf_counter() - t0
+    if healed or system.storage.text_rows_hwm != len(system.index):
+        raise AssertionError(f"system: opening {path} healed the store ({healed})")
+    return system, seconds
+
+
+def remember_all(system, calls) -> float:
+    """``batch_remember`` every call at its pinned time, the session ids from
+    the phase's seeded sequence; returns the seconds."""
+    from shodh_tpu_torch.engine import sessions
+    from shodh_tpu_torch.types import new_memory_id
+    from shodh_tpu_torch.utils.clock import pin_now
+
+    r = np.random.default_rng(SYSTEM_SEED)
+    sessions.new_memory_id = lambda: str(uuid.UUID(bytes=r.bytes(16), version=4))
+    t0 = time.perf_counter()
+    try:
+        for at, batch in calls:
+            pin_now(at)
+            system.batch_remember(batch)
+        _sync(system.device)
+    finally:
+        pin_now(None)
+        sessions.new_memory_id = new_memory_id
+    return time.perf_counter() - t0
+
+
+def _diff(a: bytes, b: bytes) -> str:
+    """The fields where two stored records differ (for a failure's message)."""
+    from shodh_tpu_torch.storage.serialization import decode
+
+    try:
+        x, y = decode(a), decode(b)
+    except ValueError:
+        return f"{len(a)} vs {len(b)} bytes"
+    if not (isinstance(x, dict) and isinstance(y, dict)):
+        return f"{x!r:.200} vs {y!r:.200}"
+    keys = sorted(k for k in x.keys() | y.keys() if x.get(k) != y.get(k))
+    return "; ".join(f"{k}: {x.get(k)!r:.120} vs {y.get(k)!r:.120}" for k in keys)
+
+
+def compare_stores(a, b, rtol: float = 1e-6) -> dict:
+    """The kv rows of ``memories.db``, ``bm25.db`` and ``graph.db`` under two
+    data directories, namespace by namespace: every key in both, every value
+    byte-equal, except memory records whose only difference is a float field
+    within ``rtol`` (an activation that interference scaled by a similarity
+    the card and the CPU summed in another order). Returns the row counts,
+    and those memory records."""
+    import sqlite3
+    from pathlib import Path
+
+    from shodh_tpu_torch.storage.serialization import decode
+
+    def close(x, y) -> bool:
+        if isinstance(x, dict) and isinstance(y, dict):
+            return x.keys() == y.keys() and all(close(x[k], y[k]) for k in x)
+        if isinstance(x, float) and isinstance(y, float):
+            return abs(x - y) <= rtol * abs(y)
+        return x == y
+
+    out = {"float_rows": 0}
+    for db in DBS:
+        con = sqlite3.connect(Path(a) / db)
+        try:
+            con.execute("ATTACH DATABASE ? AS o", (str(Path(b) / db),))
+            counts = [con.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                      for t in ("main.kv", "o.kv", "main.kv x JOIN o.kv y USING (ns, k)")]
+            if len(set(counts)) != 1:
+                raise AssertionError(f"system: {db} keys differ (rows {counts[0]} and "
+                                     f"{counts[1]}, {counts[2]} in both)")
+            for ns, key, va, vb in con.execute(
+                    "SELECT ns, k, x.v, y.v FROM main.kv x JOIN o.kv y USING (ns, k) "
+                    "WHERE x.v IS NOT y.v"):
+                if ns != "mem" or not close(decode(va), decode(vb)):
+                    raise AssertionError(f"system: {db} {ns}/{key} differs: {_diff(va, vb)}")
+                out["float_rows"] += 1
+        finally:
+            con.close()
+        out[db.split("/")[-1]] = counts[0]
+    return out
+
+
+def k1_ingest_shape(index, queries: np.ndarray) -> dict:
+    """K1 on the card at the shape of interference's batched search (B=8
+    queries over the index's device corpus): held to its plain version, and
+    its time beside the bound and ``torch.matmul`` + ``amax`` on the same
+    operands (CUDA events, one call)."""
+    import torch
+
+    from shodh_tpu_torch.ops import fused_topk as ft
+    from shodh_tpu_torch.ops.distance import NEG_INF
+
+    vecs, scales, valid = index._device_arrays()[:3]
+    q = torch.tensor(queries, device=vecs.device)
+    b, d = q.shape
+    n = vecs.shape[0]
+    g = -(-n // ft.GROUP)
+    err = float((ft.groupmax_scores(q, vecs, scales, valid)
+                 - ft.groupmax_scores_plain(q, vecs, scales, valid)).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"K1 groupmax at B={b} differs from plain by {err}")
+
+    def library():
+        raw = q @ vecs.T
+        return (raw * scales * valid + (1.0 - valid) * NEG_INF).reshape(b, -1, ft.GROUP).amax(-1)
+
+    out = {"shape": {"B": b, "N": n, "D": d}, "err": err,
+           "ms": cuda_ms(lambda: ft.groupmax_scores(q, vecs, scales, valid), 50),
+           "plain_ms": cuda_ms(lambda: ft.groupmax_scores_plain(q, vecs, scales, valid), 20),
+           "library_ms": cuda_ms(library, 50)}
+    out["bound_ms"], out["bound_by"] = bound_ms(b * d * 4 + n * d * 4 + 2 * n * 4 + b * g * 4,
+                                                2.0 * b * n * d, F32_FLOPS)
+    return out
+
+
+def snapshot(system, dest) -> None:
+    """The system's three databases as they stand (sqlite's backup, which
+    reads the write-ahead log too) and its index's host arrays, under
+    ``dest``."""
+    import sqlite3
+    from pathlib import Path
+
+    for db in DBS:
+        (Path(dest) / db).parent.mkdir(parents=True, exist_ok=True)
+        src, dst = sqlite3.connect(system.data_dir / db), sqlite3.connect(Path(dest) / db)
+        try:
+            src.backup(dst)
+        finally:
+            src.close()
+            dst.close()
+    index, rows = system.index, len(system.index)
+    np.savez(Path(dest) / "index.npz", vecs=index._vecs_np[:rows],
+             scales=index._scales_np[:rows], valid=index._valid_np[:rows])
+
+
+def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS, k=ENGINE_K,
+                 seed=SEED, card=False, expect_k1=True, after_recall=None) -> dict:
+    """One side of phase 8 over the store under ``root``: open it quietly on
+    ``device``, remember ``n`` experiences through ``batch_remember``,
+    ``flush`` (with its own refit guard), snapshot the store under
+    ``snapshot_dir``, run ``n_calls`` plain recalls with usage writes, call
+    ``after_recall`` if given, refit the semantic model (forced), close,
+    reopen quietly and recall once more. Returns the seconds of each step,
+    the recall texts and their answers ((memory id, score) lists). ``card``
+    adds the card side's instruments: the mirrors built before the ingest
+    and held to a full build after it, spies that time each host step of
+    ``remember``, K1's launches (``expect_k1``: at least one per chunk of 8)
+    and its time at the ingest's shape, the interference events by kind,
+    and each recall's stages."""
+    from shodh_tpu_torch.engine import memory_system as ms
+    from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
+    from shodh_tpu_torch.engine.semantics import base_embedder
+    from shodh_tpu_torch.retrieval.bm25 import tokenize
+    from shodh_tpu_torch.types import Query
+    from shodh_tpu_torch.utils.clock import pin_now
+
+    if not card:
+        import torch
+
+        torch.set_num_threads(4)  # the twin starts beside the card's refit and reopen
+    t_start = time.perf_counter()
+    system, open_s = open_quietly(root, device)
+    rec = {"open_s": open_s, "memories_before": system.storage.count(),
+           "capacity_before": system.index.capacity,
+           "graph_entities_before": len(system.graph.entities)}
+    stored = [system.storage.get(system.storage.memory_for_row(int(row))).experience.content
+              for row in np.random.default_rng(seed).choice(len(system.index), 512, replace=False)]
+    calls = system_calls(n, seed + 1, stored, engine_now())
+    if card:
+        # the mirrors, built before the ingest: after it, their incremental fill
+        system._device_funnel = DeviceRecallEngine(system)
+        system._device_funnel.mirrors()
+        spies = {name: timed_calls(getattr(system, obj), meth) for name, obj, meth in INGEST_STEPS}
+        lexical, spies["bm25"] = ms.index_lexical, [0, 0.0]
+
+        def timed_lexical(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return lexical(*args, **kwargs)
+            finally:
+                spies["bm25"][0] += 1
+                spies["bm25"][1] += time.perf_counter() - t0
+
+        ms.index_lexical = timed_lexical
+        # the memories that remember's dedup branch reinforced (importance + 0.02)
+        reinforced, by_hash = set(), system.storage.get_by_content_hash
+
+        def dedup_spy(chash):
+            mem = by_hash(chash)
+            if mem is not None:
+                reinforced.add(mem.id)
+            return mem
+
+        system.storage.get_by_content_hash = dedup_spy
+        events = system.interference.events = _KindCounts()
+        kv = system.storage.kv
+        before = {ns: kv.count(ns) for ns in ("ledge", "lbranch", "session")}
+        reset_launches()
+        try:
+            rec["ingest_s"] = remember_all(system, calls)
+        finally:
+            ms.index_lexical = lexical
+            for _, obj, meth in INGEST_STEPS + ((None, "storage", "get_by_content_hash"),):
+                vars(getattr(system, obj)).pop(meth, None)
+        launches = read_launches()
+        rec["steps_s"] = {name: acc[1] for name, acc in spies.items()}
+        rec["steps_calls"] = {name: acc[0] for name, acc in spies.items()}
+        rec["k1_launches_ingest"] = launches["groupmax"]
+        rec["interference_events"] = dict(events.counts)
+        rec["lineage_edges_added"] = kv.count("ledge") - before["ledge"]
+        rec["lineage_branches_added"] = kv.count("lbranch") - before["lbranch"]
+        rec["sessions_added"] = kv.count("session") - before["session"]
+        if expect_k1 and launches["groupmax"] == 0:
+            raise AssertionError("system: the ingest never launched the K1 kernel")
+        if expect_k1 and (launches["groupmax"] < n // 8 or launches["v3_pass1"]
+                          or launches["v4_pass1"]):
+            raise AssertionError(f"system: ingest launches {launches}, K1 below {n // 8}")
+        if str(device).startswith("cuda"):
+            # K1 at the ingest's shape: the last chunk's queries over the index
+            last = [e.content for e in calls[-1][1][-8:]]
+            rec["k1_b8"] = k1_ingest_shape(system.index, system.embedder.encode_batch(last))
+    else:
+        rec["ingest_s"] = remember_all(system, calls)
+    rec["ingest_ms_per_memory"] = rec["ingest_s"] * 1e3 / n
+    rec["memories_after"] = system.storage.count()
+    rec["capacity_after"] = system.index.capacity
+    rec["graph_entities_after"] = len(system.graph.entities)
+    base = base_embedder(system)
+    model = base._sem_model
+    t0 = time.perf_counter()
+    system.flush()
+    rec["flush_s"] = time.perf_counter() - t0
+    rec["flush_refit"] = base._sem_model is not model
+    snapshot(system, snapshot_dir)
+
+    if card:
+        engine = system._device_funnel
+        built = engine._built_rows
+        incremental = _mirror_snapshot(engine.mirrors())
+        engine.invalidate()
+        # The incremental fill writes only the rows allocated since the last
+        # build, as in the JAX package: an older row keeps the importance it
+        # had before remember's dedup branch reinforced its memory (ROADMAP.md
+        # section 3, R10). Every other mirror row equals the full build.
+        stale_ok = {r for mid in reinforced
+                    for r in system.storage.get_vector_map(mid).get("text", []) if r < built}
+        drift = _mirror_drift(incremental, engine.mirrors())
+        if set(drift) - {"importance"} or not drift.get("importance", set()) <= stale_ok:
+            raise AssertionError(f"system: the mirrors' incremental fill differs from a full "
+                                 f"build at {({k: sorted(v)[:5] for k, v in drift.items()})}")
+        rec["mirrors_checked"] = list(incremental)
+        rec["mirror_rows_reinforced"] = len(stale_ok)
+        rec["mirror_rows_stale"] = len(drift.get("importance", ()))
+
+    # plain recalls with usage writes, the clock pinned one call's gap past
+    # the ingest
+    postings = system.bm25._postings
+    texts = leg_queries(n_calls, seed + 13, known=lambda e: all(t in postings for t in tokenize(e)))
+    now = calls[-1][0] + (calls[-1][0] - calls[0][0]) / len(calls)
+    stages = {key: [] for key in LEG_STAGES + ("call_ms",)}
+    answers = []
+    if card:
+        reset_launches()  # K1's comparison with its plain version above does not count
+    try:
+        pin_now(now)
+        for t in texts:
+            t0 = time.perf_counter()
+            result = system.recall(Query(query_text=t, max_results=k))
+            stages["call_ms"].append((time.perf_counter() - t0) * 1e3)
+            for key in LEG_STAGES:
+                if key in result.stage_timings_ms:
+                    stages[key].append(result.stage_timings_ms[key])
+            answers.append([(s.memory.id, s.score) for s in result.memories])
+        _sync(device)
+    finally:
+        pin_now(None)
+    if card:
+        rec["recall_launches"] = read_launches()
+        # the launches of the phase's main path: the ingest and the recalls
+        rec["launches"] = {name: c + launches[name] for name, c in rec["recall_launches"].items()}
+    rec["recall_ms"] = {key: ms_stats(np.asarray(v) / 1e3) for key, v in stages.items() if v}
+    rec["texts"], rec["answers"] = texts, answers
+    system.flush()
+    snapshot(system, f"{snapshot_dir}_recall")
+    if after_recall is not None:
+        after_recall()
+
+    # a forced refit, close, reopen
+    t0 = time.perf_counter()
+    if not system.adapt_semantics(force=True):
+        raise AssertionError("system: the forced refit fitted no new model")
+    rec["refit_s"] = time.perf_counter() - t0
+    rec["semantic_vocab"] = len(base._sem_model.vocab)
+    t0 = time.perf_counter()
+    system.close()
+    rec["close_s"] = time.perf_counter() - t0
+    system, rec["reopen_s"] = open_quietly(root, device)
+    try:
+        pin_now(now)
+        result = system.recall(Query(query_text=texts[0], max_results=k))
+        rec["reopen_answer"] = [(s.memory.id, s.score) for s in result.memories]
+    finally:
+        pin_now(None)
+    system.close()
+    rec["side_s"] = time.perf_counter() - t_start
+    return rec
+
+
+def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, k=ENGINE_K,
+                 seed=SEED, expect_k1=True) -> dict:
+    """``MemorySystem`` on ``device`` over the engine phase's store under
+    ``root`` (made quiet by ``make_store_quiet``), then a CPU twin in a
+    process of its own over a copy of the store under ``work``: each side
+    runs ``drive_system``. The twin starts once the card's side has timed
+    its open, ingest and recalls, so that nothing runs beside those host
+    clocks; the card's refit, close and reopen run beside the twin's start.
+    Then the two are compared: the stores after the
+    ingest and after the close kv row by kv row, the index's host arrays
+    bit for bit, the saved semantic models byte for byte, every recall's
+    answer (ids in order, scores rtol 1e-5, atol 1e-7) and the recall after
+    the reopen."""
+    import shutil
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    work = Path(work)
+    twin_root = work / "store"
+    shutil.copytree(root, twin_root)
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        twin_job = []
+
+        def start_twin():
+            twin_job.append(pool.submit(drive_system, str(twin_root), "cpu",
+                                        str(work / "twin_ingest"), n, n_calls, k, seed))
+
+        rec = drive_system(root, device, work / "card_ingest", n, n_calls, k, seed, card=True,
+                           expect_k1=expect_k1, after_recall=start_twin)
+        t1 = time.perf_counter()
+        twin = twin_job[0].result()
+        rec["twin_wait_s"] = time.perf_counter() - t1
+    rec = {"phase": "system", "experiences": n, "call": SYSTEM_CALL, "recalls": n_calls, "k": k,
+           **rec}
+    if twin["texts"] != rec["texts"]:
+        raise AssertionError("system: the twin drew other recall queries")
+    for got, want in zip(rec.pop("answers"), twin.pop("answers")):
+        same_hits("system recall vs the twin", got, want)
+    same_hits("system recall after the reopen vs the twin", rec.pop("reopen_answer"),
+              twin.pop("reopen_answer"))
+    rec["answers_checked"] = len(rec.pop("texts"))
+    t1 = time.perf_counter()
+    rec["stores_after_ingest"] = compare_stores(work / "card_ingest", work / "twin_ingest")
+    with np.load(work / "card_ingest" / "index.npz") as a, \
+            np.load(work / "twin_ingest" / "index.npz") as b:
+        for name in ("vecs", "scales", "valid"):
+            if not np.array_equal(a[name], b[name]):
+                raise AssertionError(f"system: the index's {name} differs from the twin's")
+    rec["stores_after_recall"] = compare_stores(work / "card_ingest_recall",
+                                                work / "twin_ingest_recall")
+    rec["stores_after_close"] = compare_stores(root, twin_root)
+    for suffix in (".json", ".npz"):
+        name = f"semantic_model{suffix}"
+        if (Path(root) / name).read_bytes() != (twin_root / name).read_bytes():
+            raise AssertionError(f"system: the saved {name} differs from the twin's")
+    rec["compare_s"] = time.perf_counter() - t1
+    twin.pop("texts")
+    rec["twin"] = twin
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1625,12 +2162,15 @@ def main() -> int:
         rec_legs["launches"] = read_launches()
         rec_legs["ingest_legs"] = rec_engine["ingest_legs"]
         emit(rec_legs)
-        holder.graph.close()
-        holder.storage.close()
-    for rec in (rec_engine, rec_legs):
-        if any(rec["launches"].values()):
-            raise AssertionError(f"{rec['phase']}: launched K1-K3, which lie off its path")
-    del holder, engines
+        for rec in (rec_engine, rec_legs):
+            if any(rec["launches"].values()):
+                raise AssertionError(f"{rec['phase']}: launched K1-K3, which lie off its path")
+        make_store_quiet(holder, tmp)
+        del holder, engines
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as work:
+            rec_system = phase_system(tmp, work)
+        emit(rec_system)
     torch.cuda.empty_cache()
     emit({"phase": "total", "script_s": time.perf_counter() - _START})
 
@@ -1643,7 +2183,12 @@ def main() -> int:
          "int8_ms": k1["k1_int8_ms"], "int8_plain_ms": k1["k1_int8_plain_ms"],
          "int8_bound_ms": k1["k1_int8_bound_ms"], "int8_library_ms": k1["k1_int8_library_ms"],
          "b16_ms": k1["k1_b16_ms"], "b16_bound_ms": k1["k1_b16_bound_ms"],
-         "b16_library_ms": k1["k1_b16_library_ms"]},
+         "b16_library_ms": k1["k1_b16_library_ms"],
+         "system_launches": rec_system["launches"]["groupmax"],
+         "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],
+         "b8_bound_ms": rec_system["k1_b8"]["bound_ms"],
+         "b8_library_ms": rec_system["k1_b8"]["library_ms"],
+         "b8_max_abs_err": rec_system["k1_b8"]["err"], "b8_n": rec_system["k1_b8"]["shape"]["N"]},
         {"name": "v3_pass1", "route": "cuda", "source": "shodh_tpu_torch/ops/csrc/v3_pass1.cu",
          "replaces": "shodh_tpu/ops/fused_topk.py:566",
          "launches": rec_i8["launches"]["v3_pass1"], "max_abs_err": k1["k2_err"],
@@ -1666,4 +2211,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # Phase 8 holds the card's system to a CPU twin in a process of its own.
+    # The fusion builds its score dicts in the iteration order of sets of
+    # memory ids, which follows the interpreter's string hash seed
+    # (ROADMAP.md section 3, R12): both processes run under one fixed seed.
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     sys.exit(main())

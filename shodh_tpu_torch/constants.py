@@ -357,3 +357,80 @@ SEM_EXPANSION_PER_STEM = env_int("SHODH_SEM_EXP_PER_STEM", 3)
 SEM_EXPANSION_MIN_SIM = env_float("SHODH_SEM_EXP_MIN_SIM", 0.45)
 SEM_EXPANSION_MAX_TERMS = env_int("SHODH_SEM_EXP_MAX_TERMS", 8)
 SEM_EXPANSION_TERM_WEIGHT = env_float("SHODH_SEM_EXP_WEIGHT", 0.2)
+
+# Document-side BM25 expansion during adapt_semantics (the weight,
+# SHODH_DOC_EXPANSION_WEIGHT, is read at call time)
+DOC_EXPANSION_TOP_STEMS = env_int("SHODH_DOC_EXP_TOP_STEMS", 6)
+DOC_EXPANSION_PER_STEM = env_int("SHODH_DOC_EXP_PER_STEM", 2)
+DOC_EXPANSION_MIN_SIM = env_float("SHODH_DOC_EXP_MIN_SIM", 0.5)
+
+# remember's ingest: chunking of long content, the importance model, the
+# NER's graph floor, the full gazetteer, session gaps
+CHUNK_TOKENS = 200
+CHUNK_OVERLAP = 50
+IMPORTANCE_TYPE_BASE = {
+    "decision": 0.30,
+    "error": 0.25,
+    "learning": 0.25,
+    "discovery": 0.20,
+    "pattern": 0.20,
+    "task": 0.15,
+    "conversation": 0.10,
+    "context": 0.10,
+    "observation": 0.10,
+}
+IMPORTANCE_TYPE_DEFAULT = 0.05
+IMPORTANCE_FLOOR = 0.05
+IMPORTANCE_RECENCY_BOOST = 0.20
+IMPORTANCE_RECENCY_DAYS = 7.0
+IMPORTANCE_ENTITY_BOOST = 0.04
+IMPORTANCE_ENTITY_MAX = 3
+IMPORTANCE_CONNECTIVITY_BOOST = 0.03
+IMPORTANCE_CONNECTIVITY_MAX = 5
+NER_GRAPH_CONFIDENCE_FLOOR = 0.6
+GAZETTEER_FULL = env_flag("SHODH_GAZETTEER_FULL", True)
+FEEDBACK_SESSION_GAP_SECS = 1800
+
+# Interference on store
+INTERFERENCE_SIMILARITY_THRESHOLD = 0.85
+INTERFERENCE_SEVERE_THRESHOLD = 0.95
+INTERFERENCE_RETROACTIVE_DECAY = 0.1
+INTERFERENCE_PROACTIVE_DECAY = 0.05
+INTERFERENCE_PROACTIVE_THRESHOLD = 0.8
+INTERFERENCE_VULNERABILITY_HOURS = 24
+INTERFERENCE_MAX_TRACKED = 10
+INTERFERENCE_ACTIVATION_FLOOR = 0.05
+COMPETITION_SUPPRESSED_DEMOTION = 0.9
+
+# Replay and its pattern detection
+REPLAY_IMPORTANCE_THRESHOLD = 0.3
+REPLAY_MAX_AGE_DAYS = 14
+REPLAY_AROUSAL_THRESHOLD = 0.6
+REPLAY_STRENGTH_BOOST = 0.05
+REPLAY_EDGE_BOOST = 0.08
+REPLAY_BATCH_SIZE = 50
+REPLAY_CONNECTIVITY_DIVISOR = 10.0
+REPLAY_CONNECTIVITY_MAX_BOOST = 0.5
+MIN_MEMORIES_PER_PATTERN = 3
+MIN_CLUSTER_SIZE = 3
+TEMPORAL_CLUSTER_WINDOW_SECS = 1800
+HIGH_AROUSAL_THRESHOLD = 0.7
+
+# Lineage inference
+LINEAGE_MAX_TEMPORAL_GAP_DAYS = 14
+LINEAGE_MIN_ENTITY_OVERLAP = 0.3
+LINEAGE_MIN_EMBEDDING_SIMILARITY = 0.25
+LINEAGE_MAX_CANDIDATES = 20
+LINEAGE_LOOKBACK_DAYS = 7
+LINEAGE_MAX_EDGES_PER_MEMORY = 8
+LINEAGE_MAX_CANDIDATE_READS = 60
+LINEAGE_CONFIDENCE = {
+    "caused": 0.8,
+    "resolved_by": 0.85,
+    "informed_by": 0.7,
+    "superseded_by": 0.6,
+    "triggered_by": 0.75,
+    "branched_from": 0.9,
+    "related_to": 0.5,
+}
+LINEAGE_MIN_STORE_CONFIDENCE = 0.20

@@ -1,32 +1,35 @@
 """Corpus-adaptive semantics of a store (port of ``MemorySystem._base_embedder``,
-``adapt_semantics`` and ``_reload_semantic_model`` in
+``adapt_semantics``, ``_expand_bm25_docs`` and ``_reload_semantic_model`` in
 ``shodh_tpu/engine/memory_system.py``).
 
 Plain functions over a duck-typed ``system``: ``embedder``, ``storage``,
-``data_dir`` and ``bm25``. The default path fits a
-``CorpusSemanticModel`` on the store's newest texts, attaches it to the hash
-embedder at weight 0 (it then only drives the BM25 plan's semantic
-expansion and the learned-fusion features) and saves it under
-``data_dir/semantic_model``, where the JAX package reads it too.
+``data_dir`` and ``bm25``, and where a branch needs them ``rebuild_index`` and
+``introspection``. The default path fits a ``CorpusSemanticModel`` on the
+store's newest texts, attaches it to the hash embedder at weight 0 (it then
+only drives the BM25 plan's semantic expansion and the learned-fusion
+features) and saves it under ``data_dir/semantic_model``, where the JAX
+package reads it too. ``SHODH_SEM_WEIGHT>0`` blends the model into the
+embedder and re-embeds the store (``system.rebuild_index``);
+``SHODH_DOC_EXPANSION_WEIGHT>0`` adds each BM25 document's neighbour terms.
 
-Three branches of the reference re-embed or re-index the store, which needs
-``rebuild_index`` and ``models/chunking.py``, ported with ``remember``'s
-ingest (ROADMAP.md section 1, item 4): ``SHODH_SEM_WEIGHT>0``,
-``SHODH_ADJ_METRIC_ALPHA>0`` and ``SHODH_DOC_EXPANSION_WEIGHT>0``. Each
-raises ``NotImplementedError`` where the reference would take it.
+The adjacency metric (``SHODH_ADJ_METRIC_ALPHA>0``) is not ported: where the
+reference would fit or load it, ``adapt_semantics`` and
+``reload_semantic_model`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from shodh_tpu_torch import constants as C
+from shodh_tpu_torch.models.hash_embedder import content_stems
 from shodh_tpu_torch.models.semantic_model import CorpusSemanticModel
 
-_NEEDS_INGEST = "ROADMAP.md section 1, item 4 (remember's ingest, with rebuild_index)"
+_NEEDS_ADJ = "ROADMAP.md section 1, item 6 (the adjacency metric, models/adjacency_metric.py)"
 
 
-def _refuse(knob: str, value: float) -> None:
+def _refuse_adjacency(value: float) -> None:
     raise NotImplementedError(
-        f"{knob}={value:g} re-embeds or re-indexes the store, which waits for {_NEEDS_INGEST}"
+        f"SHODH_ADJ_METRIC_ALPHA={value:g} warps the store's vectors with the adjacency "
+        f"metric, which waits for {_NEEDS_ADJ}"
     )
 
 
@@ -67,20 +70,61 @@ def adapt_semantics(system, force: bool = False) -> bool:
     if prev is not None and prev.corpus_fingerprint == model.corpus_fingerprint:
         prev.fitted_n = n  # same corpus set: nothing to re-embed
         return False
-    weight = C.semantic_blend_weight()
-    if weight > 0.0:
-        _refuse("SHODH_SEM_WEIGHT", weight)
     adj_alpha = C.env_float("SHODH_ADJ_METRIC_ALPHA", 0.0)
     if adj_alpha > 0.0:
-        _refuse("SHODH_ADJ_METRIC_ALPHA", adj_alpha)
-    doc_w = C.env_float("SHODH_DOC_EXPANSION_WEIGHT", 0.0)
-    if doc_w > 0.0 and system.bm25 is not None:
-        _refuse("SHODH_DOC_EXPANSION_WEIGHT", doc_w)
+        _refuse_adjacency(adj_alpha)
+    weight = C.semantic_blend_weight()
     base.set_semantic_model(model, weight=weight)
     if hasattr(system.embedder, "refresh_inner"):
         system.embedder.refresh_inner()
     model.save(system.data_dir / "semantic_model")
+    if weight > 0.0:
+        # the blend changes stored vectors: re-embed. Otherwise the model
+        # only drives BM25 expansion and the vectors are untouched.
+        system.rebuild_index()
+    doc_w = C.env_float("SHODH_DOC_EXPANSION_WEIGHT", 0.0)
+    if doc_w > 0.0 and system.bm25 is not None:
+        expand_bm25_docs(system, model, doc_w)
+    if getattr(system, "introspection", None) is not None:
+        system.introspection.record("adapt_semantics", "", {"vocab": len(model.vocab), "n": n})
     return True
+
+
+def expand_bm25_docs(system, model, weight: float) -> None:
+    """Document-side semantic expansion (the index-time mirror of the BM25
+    query expansion): every document inherits the co-occurrence neighbours of
+    its most distinctive stems at ``weight * sim``. Idempotent across refits:
+    ``bm25.set_expansion_terms`` replaces the previous expansion."""
+    bm25 = system.bm25
+    nbr_memo: dict[str, list[tuple[str, float]]] = {}
+
+    def nbrs(s: str):
+        if s not in nbr_memo:
+            nbr_memo[s] = [
+                (t, sim)
+                for t, sim in model.neighbors_of_stem(s, C.DOC_EXPANSION_PER_STEM)
+                if sim >= C.DOC_EXPANSION_MIN_SIM
+            ]
+        return nbr_memo[s]
+
+    for mem in system.storage.iter_memories():
+        stems = list(dict.fromkeys(content_stems(mem.experience.content)))
+        if not stems:
+            continue
+        # distinctive stems first: expansion from common words only adds noise
+        stems.sort(key=lambda s: (-bm25.idf(s), s))
+        extra: dict[str, float] = {}
+        sset = set(stems)
+        for s in stems[: C.DOC_EXPANSION_TOP_STEMS]:
+            for t, sim in nbrs(s):
+                if t in sset:
+                    continue
+                w = weight * sim
+                if w > extra.get(t, 0.0):
+                    extra[t] = w
+        if extra or bm25.has_expansion(mem.id):
+            # an empty extra still replaces a previous refit's expansion
+            bm25.set_expansion_terms(mem.id, extra)
 
 
 def reload_semantic_model(system) -> None:
@@ -98,4 +142,4 @@ def reload_semantic_model(system) -> None:
             system.embedder.refresh_inner()
     adj_alpha = C.env_float("SHODH_ADJ_METRIC_ALPHA", 0.0)
     if adj_alpha > 0.0:
-        _refuse("SHODH_ADJ_METRIC_ALPHA", adj_alpha)
+        _refuse_adjacency(adj_alpha)

@@ -12,8 +12,8 @@ replicas) neither race two compilers nor load a half-written library.
 
 Nothing falls back: a build or load that fails raises with the compiler's
 message, where the JAX package's binding quietly leaves its callers on the
-Python scorer. The NER bindings of the JAX package wait for the port's NER
-(``ROADMAP.md``); the library carries their symbols all the same.
+Python scorer. The distilled NER's native tagger (``ner_load``, ``ner_tag``)
+is bound here too, with the JAX package's version token.
 """
 
 from __future__ import annotations
@@ -76,7 +76,11 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
+    path = build()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"native scorer load failed: {path}: {e}") from e
     lib.shodh_bm25_new.restype = ctypes.c_void_p
     lib.shodh_bm25_free.argtypes = [ctypes.c_void_p]
     lib.shodh_bm25_set_params.argtypes = [ctypes.c_float, ctypes.c_float]
@@ -101,6 +105,9 @@ def load() -> ctypes.CDLL:
     lib.shodh_free.argtypes = [ctypes.c_void_p]
     lib.shodh_lemma_load.argtypes = [ctypes.c_char_p]
     lib.shodh_norm_load.argtypes = [ctypes.c_char_p]
+    lib.shodh_ner_load.argtypes = [ctypes.c_char_p]
+    lib.shodh_ner_tag.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+    lib.shodh_ner_tag.restype = ctypes.c_int
     # The irregular-lemma and norm-fold tables (nlp/lemmas.py, nlp/norms.py):
     # without them native tokens and scores diverge from the persisted postings.
     from shodh_tpu_torch.nlp.lemmas import LEMMA_EXCEPTIONS
@@ -114,6 +121,48 @@ def load() -> ctypes.CDLL:
         lib.shodh_norm_load(buf.encode())
     _lib = lib
     return _lib
+
+
+# The C++ model is process-global; this version counter is the ownership
+# token. Every ner_load bumps it, and ner_tag refuses a stale expectation, so
+# an instance whose weights were later replaced falls back to its own Python
+# rows instead of tagging with foreign weights.
+_ner_version = 0
+
+
+def ner_load(rows: dict) -> int:
+    """Push the distilled-NER dense weight rows (feature -> [9 floats] in
+    TAGS order) into the process-global native model. Returns the model
+    version token."""
+    global _ner_version
+    lib = load()
+    blob = "".join(
+        ft + "\t" + " ".join(repr(w) for w in row) + "\n"
+        for ft, row in rows.items()
+    )
+    lib.shodh_ner_load(blob.encode())
+    _ner_version += 1
+    return _ner_version
+
+
+def ner_tag(words: list[str], expect_version: int = 0) -> "list[tuple[int, float]] | None":
+    """Native greedy BIO decode: [(tag_index, margin), ...], or None when the
+    caller's model was replaced (version mismatch) or the buffer contract
+    fails."""
+    lib = load()
+    if expect_version and expect_version != _ner_version:
+        return None  # another artifact owns the global model now
+    blob = ("\n".join(words) + "\n").encode()
+    cap = 40 * len(words) + 64
+    out = ctypes.create_string_buffer(cap)
+    n = lib.shodh_ner_tag(blob, out, cap)
+    if n < 0:
+        return None
+    pairs = []
+    for line in out.value.decode().splitlines():
+        idx, margin = line.split(" ", 1)
+        pairs.append((int(idx), float(margin)))
+    return pairs
 
 
 def native_stem(word: str) -> str:

@@ -69,6 +69,19 @@ PORT_MODULES = [
     "shodh_tpu_torch.retrieval.bm25",
     "shodh_tpu_torch.models.hash_embedder",
     "shodh_tpu_torch.models.embedder",
+    "shodh_tpu_torch.models.chunking",
+    "shodh_tpu_torch.engine.importance",
+    "shodh_tpu_torch.nlp.ner",
+    "shodh_tpu_torch.nlp.distilled_ner",
+    "shodh_tpu_torch.nlp.gazetteer",
+    "shodh_tpu_torch.engine.sessions",
+    "shodh_tpu_torch.engine.interference",
+    "shodh_tpu_torch.engine.replay",
+    "shodh_tpu_torch.engine.lineage",
+    "shodh_tpu_torch.engine.introspection",
+    "shodh_tpu_torch.engine.ab_testing",
+    "shodh_tpu_torch.utils.tracing",
+    "shodh_tpu_torch.engine.memory_system",
     "chip_smoke",
 ]
 _ABSENT = ("jax", "shodh_tpu", "msgpack")  # never imported by a port process

@@ -190,3 +190,87 @@ def test_v4_certified_search_at_b3_launches_its_pass1(impl, d, monkeypatch):
     bv, br = brute_topk(q, c, v, 10, s)
     assert torch.equal(rows, br)
     torch.testing.assert_close(vals, bv, rtol=1e-5, atol=1e-6)
+
+
+class _RowStore:
+    """The storage side of ``InterferenceEngine``: memory ids by row, records
+    made on first read, and the activations written back."""
+
+    def __init__(self, n_old: int):
+        self.n_old, self.new_ids, self.mems, self.written = n_old, {}, {}, {}
+
+    def memory_for_row(self, row: int):
+        return f"old{row:06d}" if row < self.n_old else self.new_ids.get(row)
+
+    def get(self, mid: str):
+        from datetime import datetime, timedelta, timezone
+
+        from shodh_tpu_torch.types import Experience, Memory
+
+        if mid not in self.mems and mid.startswith("old"):
+            row = int(mid[3:])
+            self.mems[mid] = Memory(
+                id=mid, experience=Experience(content=mid),
+                created_at=datetime(2024, 3, 1, tzinfo=timezone.utc) - timedelta(hours=row % 40),
+                activation=0.4 + (row % 13) / 10)
+        return self.mems.get(mid)
+
+    def update(self, mem) -> None:
+        self.written[mem.id] = mem.activation
+
+
+@pytest.mark.cuda
+def test_interference_on_the_card_launches_k1_and_equals_the_cpu():
+    """``InterferenceEngine.on_store_batch`` over a 69,632-capacity index on
+    the card (the ingest's batched search, B=8): K1 runs once per chunk, and
+    the events and activations equal the same calls over a CPU copy of the
+    index (similarities to rtol 1e-5: f32 sums in another order)."""
+    from datetime import datetime, timedelta, timezone
+
+    from shodh_tpu_torch.engine.interference import InterferenceEngine
+    from shodh_tpu_torch.index.device_index import DeviceVectorIndex
+    from shodh_tpu_torch.types import Experience, Memory
+
+    _need_cuda()
+    rng = np.random.default_rng(23)
+    n_old, d = 65_600, 384
+    old = rng.standard_normal((n_old, d)).astype(np.float32)
+    old /= np.linalg.norm(old, axis=1, keepdims=True)
+    chunks = []
+    for _ in range(3):
+        vecs = []
+        for j in range(8):
+            src = vecs[-1] if j % 3 == 2 else old[int(rng.integers(0, n_old))]
+            v = src + (0.01 + 0.04 * rng.random()) * rng.standard_normal(d).astype(np.float32)
+            vecs.append((v / np.linalg.norm(v)).astype(np.float32))
+        chunks.append(vecs)
+    out = {}
+    for device in ("cuda", "cpu"):
+        index = DeviceVectorIndex(d, device=device)
+        index.add(old)
+        index.flush()
+        store = _RowStore(n_old)
+        engine = InterferenceEngine(type("System", (), {"index": index, "storage": store})())
+        before = tf.groupmax_scores.launches
+        for c, vecs in enumerate(chunks):
+            first = len(index)
+            index.add(np.stack(vecs))
+            items = []
+            for j, v in enumerate(vecs):
+                at = datetime(2024, 3, 1, 9, tzinfo=timezone.utc) + timedelta(minutes=10 * j)
+                mem = Memory(id=f"new{c}-{j}", experience=Experience(content=f"n{c}{j}"),
+                             created_at=at, activation=0.9, vector_row=first + j)
+                store.new_ids[first + j] = mem.id
+                store.mems[mem.id] = mem
+                items.append((mem, v, at))
+            engine.on_store_batch(items)
+        assert index.capacity == 69_632
+        out[device] = (engine.events, store.written, tf.groupmax_scores.launches - before)
+    (got, got_act, launches), (want, want_act, cpu_launches) = out["cuda"], out["cpu"]
+    assert launches == len(chunks) and cpu_launches == 0
+    assert [{**e, "similarity": 0} for e in got] == [{**e, "similarity": 0} for e in want]
+    np.testing.assert_allclose([e["similarity"] for e in got], [e["similarity"] for e in want],
+                               rtol=1e-5)
+    assert sorted(got_act) == sorted(want_act) and len(got) > 5
+    np.testing.assert_allclose([got_act[m] for m in sorted(got_act)],
+                               [want_act[m] for m in sorted(got_act)], rtol=1e-6)

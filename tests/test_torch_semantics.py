@@ -7,12 +7,15 @@ The store of ``test_torch_rank_pool.py`` is remembered by a reference
 The port's ``fit`` on the same texts, its ``load`` of the saved model and
 its own ``adapt_semantics`` over the store must give the reference's model;
 with the model attached, ``plan_bm25_query`` must give every plan the
-reference made while serving the query set (both funnels), and the three
-branches that re-embed or re-index the store must raise.
+reference made while serving the query set (both funnels). The branches that
+re-embed or re-index the store (the dense blend, the documents' expansion)
+must give the reference's store through each package's ``MemorySystem``, and
+the adjacency metric, which is not ported, must raise.
 """
 
 import json
 import shutil
+import sqlite3
 from types import SimpleNamespace
 
 import numpy as np
@@ -165,24 +168,63 @@ def test_plans_equal_the_references(store):
     assert off[0] == bare[0] == q.query_text
 
 
-@pytest.mark.parametrize("knob", ["SHODH_SEM_WEIGHT", "SHODH_ADJ_METRIC_ALPHA",
-                                  "SHODH_DOC_EXPANSION_WEIGHT"])
+@pytest.mark.parametrize("knob", ["SHODH_SEM_WEIGHT", "SHODH_DOC_EXPANSION_WEIGHT"])
+def test_rebuilt_branches_give_the_references_store(store, tmp_path, monkeypatch, knob):
+    """The branches that re-embed the store (``rebuild_index``, the dense
+    blend) or re-index its BM25 documents (``expand_bm25_docs``): each
+    package's ``MemorySystem`` refits over a copy of the store, and the
+    port's store, index and saved model must be the reference's (the
+    blended vectors to rtol 1e-6, as the embedders' blend)."""
+    from shodh_tpu_torch.engine.memory_system import MemorySystem as PortSystem
+
+    monkeypatch.setenv("SHODH_EVAL_NOW", trp.NOW_ISO)
+    monkeypatch.setenv(knob, "0.3")
+    for name, cls, kw in (("ref", MemorySystem, {}), ("port", PortSystem, {"device": "cpu"})):
+        shutil.copytree(store.root / "store", tmp_path / name)
+        for suffix in (".json", ".npz"):
+            (tmp_path / name / f"semantic_model{suffix}").unlink()
+        system = cls(tmp_path / name, **kw)
+        epoch = system.index.epoch
+        assert system.adapt_semantics()
+        assert system.index.epoch == epoch + (knob == "SHODH_SEM_WEIGHT")
+        if knob == "SHODH_DOC_EXPANSION_WEIGHT":
+            assert sum(system.bm25.has_expansion(m.id) for m in system.get_all(1000)) > 50
+        system.close()
+    for db in ("memories.db", "bm25/bm25.db"):
+        assert trp_kv(tmp_path / "port" / db) == trp_kv(tmp_path / "ref" / db), db
+    assert_same_model(CorpusSemanticModel.load(tmp_path / "port" / "semantic_model"),
+                      RefModel.load(tmp_path / "ref" / "semantic_model"))
+    got, want = (np.load(tmp_path / p / "index" / "text.npz") for p in ("port", "ref"))
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_allclose(got["vecs"], want["vecs"], rtol=1e-6, atol=1e-7)
+    assert (json.loads((tmp_path / "port" / "index" / "text.json").read_text())["epoch"]
+            == json.loads((tmp_path / "ref" / "index" / "text.json").read_text())["epoch"])
+
+
+def trp_kv(path) -> dict:
+    con = sqlite3.connect(path)
+    try:
+        return {(ns, k): v for ns, k, v in con.execute("SELECT ns, k, v FROM kv")}
+    finally:
+        con.close()
+
+
+@pytest.mark.parametrize("knob", ["SHODH_ADJ_METRIC_ALPHA"])
 def test_refused_branches_raise(store, tmp_path, monkeypatch, knob):
-    """Each branch that re-embeds or re-indexes the store waits for
-    remember's ingest: NotImplementedError, never a silent skip."""
+    """The adjacency metric is not ported: where the reference would fit or
+    load it, NotImplementedError, never a silent skip."""
     shutil.copytree(store.root / "store", tmp_path / "s")
     for suffix in (".json", ".npz"):
         (tmp_path / "s" / f"semantic_model{suffix}").unlink()
     system = _port_system(tmp_path / "s")
     monkeypatch.setenv(knob, "0.3")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         semantics.adapt_semantics(system)
     assert system.embedder._sem_model is None
     assert not (tmp_path / "s" / "semantic_model.json").exists()
-    if knob == "SHODH_ADJ_METRIC_ALPHA":
-        with pytest.raises(NotImplementedError, match="item 4"):
-            semantics.reload_semantic_model(SimpleNamespace(
-                embedder=HashEmbedder(), data_dir=store.root / "store"))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        semantics.reload_semantic_model(SimpleNamespace(
+            embedder=HashEmbedder(), data_dir=store.root / "store"))
     system.storage.close()
 
 
