@@ -58,11 +58,24 @@ Phases, each printing one JSON line:
    seconds of each ``remember`` step, K1's launches; the stores compared kv
    row by kv row, the index's host arrays and the row mirrors' incremental
    fill held to a full build; 48 plain recalls with usage writes held to the
-   twin's; ``flush``, a forced refit of the semantic model, ``save``,
-   ``close`` and a reopen of both with one recall compared; and K1 at the
-   ingest's shape (B=8 over the phase's index) against its plain version,
-   with its time, bound and library time;
-9. the ``kernels`` line: launches on the main path, errors and times.
+   twin's; 16 staged recalls (``STAGED_SHAPES``: filters, the rungs of the
+   layer ladder, an offset, a caller's embedding, the device funnel off,
+   RRF fusion, diagnostics, the enumeration day-bucket union, a scoring
+   A/B, a filter-only query), their vector legs through K1 on the card,
+   held to the twin's, and one ``index_retrieve`` of every memory; explicit
+   feedback (``reinforce_recall``) and one ``run_maintenance`` pass, reports
+   and stores held to the twin's; ``flush``, a forced refit of the
+   semantic model, ``save``, ``close`` and a reopen of both with one recall
+   compared; and K1 at the ingest's and the staged leg's shape (B=8 over
+   the phase's index) against its plain version, with its time, bound and
+   library time;
+9. ``eval`` (run before phase 8, so that nothing runs beside it): ``python
+   -m shodh_tpu_torch.cli eval`` of the ``smoke`` and ``locomo-gate``
+   suites over the whole layer ladder on the card, each in its own process;
+   the dumps equal the JAX package's committed under
+   ``tests/torch_eval_dumps``, and the card's recall latency percentiles per
+   layer;
+10. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
@@ -1569,7 +1582,8 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
 N_SYSTEM = 1024
 SYSTEM_CALL = 64  # experiences per batch_remember call: 8 ingest chunks of 8
 SYSTEM_SEED = 8191  # the session ids' seeded sequence
-SYSTEM_RECALLS = 48  # plain recalls with usage writes, 8 of each leg shape
+# Plain recalls with usage writes, 8 of each leg shape
+SYSTEM_RECALLS = 48
 DBS = ("memories.db", "bm25/bm25.db", "graph/graph.db")  # a store's kv databases
 PIVOTS = ("we should pivot to a new strategy for the", "time to start fresh with the",
           "scrap this plan, a complete rewrite of the")
@@ -1843,20 +1857,112 @@ def snapshot(system, dest) -> None:
              scales=index._scales_np[:rows], valid=index._valid_np[:rows])
 
 
+# Staged recalls after the plain ones: the shapes of
+# tests/test_torch_staged_funnel.py that phase 8's store can serve (a filter,
+# each rung of the layer ladder below FULL, an offset, a caller's embedding,
+# a time range with types, an importance floor, SHODH_DEVICE_FUNNEL=0,
+# SHODH_FUSION_RRF=1, recall_with_diagnostics, the enumeration day-bucket
+# union, an active scoring A/B, and a filter-only query (index_retrieve))
+STAGED_SHAPES = ("tags", "vector_only", "+spreading", "+bm25", "+rerank", "+facts", "offset",
+                 "embedding", "time_types", "importance", "funnel_off", "rrf", "diagnostics",
+                 "enum_union", "scoring_ab", "filter_only")
+# One of each shape: 32 took 1.8 s a call on an NVIDIA H100 80GB HBM3 (700 W)
+# and as much again on the twin, and the script 1,079 s of its 1,200
+STAGED_RECALLS = 16
+REINFORCED = 4  # plain recalls whose top answers get explicit feedback
+# the steps of run_maintenance, each timed by a spy on the card's system:
+# (name, attribute of the system or "" for the system, method); the record
+# rewrites of promotion, decay and replay all go through storage.update
+MAINTENANCE_STEPS = (("enrich", "", "enrich_pending"), ("semantics", "", "adapt_semantics"),
+                     ("store_update", "storage", "update"),
+                     ("graph", "graph", "run_maintenance"), ("replay", "replay", "run_cycle"),
+                     ("distill", "", "distill_facts"),
+                     ("temporal_facts", "temporal_facts", "prune"),
+                     ("compact", "index", "maybe_compact"), ("graph_flush", "graph", "flush"))
+
+
+def staged_call(system, shape: str, text: str, j: int, now):
+    """One staged recall of ``shape`` on ``text`` at ``now`` (the clock is
+    pinned by the caller): returns the result."""
+    from datetime import timedelta
+
+    from shodh_tpu_torch.engine.ab_testing import Experiment, VariantStats
+
+    q = {"query_text": text, "max_results": ENGINE_K}
+    knobs = {}
+    if shape == "tags":
+        q["tags"] = [TAGS[j % len(TAGS)]]
+    elif shape.startswith(("vector", "+")):
+        q["layers"] = shape
+    elif shape == "offset":
+        q["offset"] = 3
+    elif shape == "embedding":
+        q["query_embedding"] = system.embedder.encode_query(text).tolist()
+    elif shape == "time_types":
+        q["time_range"] = [(now - timedelta(days=120)).isoformat(), now.isoformat()]
+        q["experience_types"] = ["conversation"]
+    elif shape == "importance":
+        q["importance_threshold"] = 0.3
+    elif shape == "funnel_off":
+        knobs["SHODH_DEVICE_FUNNEL"] = "0"
+    elif shape == "rrf":
+        knobs["SHODH_FUSION_RRF"] = "1"
+    elif shape == "enum_union":
+        knobs["SHODH_ENUM_DAY_UNION"] = "1"
+        q["query_text"] = f"which {WORDS[j % len(WORDS)]}s has {text}"
+    elif shape == "filter_only":
+        q = {"tags": [TAGS[j % len(TAGS)]], "max_results": ENGINE_K}
+    with env(**knobs):
+        if shape == "diagnostics":
+            return system.recall_with_diagnostics(q)
+        if shape != "scoring_ab":
+            return system.recall(q)
+        # a running scoring experiment (a fixed id on both sides) for one call
+        exp = Experiment(id=f"exp-{j}", name="scoring:fusion", created_at=now,
+                         variants={"a": {"vec_trust": 0.7}, "b": {"graph_weight_scale": 0.5}},
+                         stats={"a": VariantStats(), "b": VariantStats()})
+        exp.status = "running"
+        system.ab._save(exp)
+        try:
+            return system.recall(q)
+        finally:
+            system.ab.set_status(exp.id, "stopped")
+
+
+def newest_distill(system, n: int = DISTILL_NEWEST) -> None:
+    """Make ``system.facts.distill`` distill over the store's newest ``n``
+    memories, as phase 6 does: the distillation compares every pair of
+    memories older than a week (ROADMAP.md section 3, R13), and over this
+    whole store it would take about 40 minutes."""
+    from types import SimpleNamespace
+
+    distill = system.facts.distill
+
+    def newest(storage, now):
+        mems = sorted(storage.iter_memories(), key=lambda m: (m.created_at, m.id))[-n:]
+        return distill(SimpleNamespace(iter_memories=lambda: iter(mems)), now)
+
+    system.facts.distill = newest
+
+
 def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS, k=ENGINE_K,
-                 seed=SEED, card=False, expect_k1=True, after_recall=None) -> dict:
+                 seed=SEED, card=False, expect_k1=True, after_recall=None,
+                 n_staged=STAGED_RECALLS) -> dict:
     """One side of phase 8 over the store under ``root``: open it quietly on
     ``device``, remember ``n`` experiences through ``batch_remember``,
     ``flush`` (with its own refit guard), snapshot the store under
-    ``snapshot_dir``, run ``n_calls`` plain recalls with usage writes, call
-    ``after_recall`` if given, refit the semantic model (forced), close,
-    reopen quietly and recall once more. Returns the seconds of each step,
+    ``snapshot_dir``, run ``n_calls`` plain recalls and ``n_staged`` staged
+    ones with usage writes and one ``index_retrieve`` of every memory,
+    snapshot, call ``after_recall`` if given, give feedback on a few answers,
+    run maintenance, recall, snapshot, refit the semantic model (forced),
+    close, reopen quietly and recall once more. Returns the seconds of each step,
     the recall texts and their answers ((memory id, score) lists). ``card``
     adds the card side's instruments: the mirrors built before the ingest
     and held to a full build after it, spies that time each host step of
-    ``remember``, K1's launches (``expect_k1``: at least one per chunk of 8)
-    and its time at the ingest's shape, the interference events by kind,
-    and each recall's stages."""
+    ``remember``, K1's launches (``expect_k1``: at least one per chunk of 8
+    in the ingest, and one per search of a flushed index in the staged
+    recalls) and its time at the ingest's shape, the interference events by
+    kind, and each recall's stages."""
     from shodh_tpu_torch.engine import memory_system as ms
     from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
     from shodh_tpu_torch.engine.semantics import base_embedder
@@ -1965,7 +2071,8 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
     # plain recalls with usage writes, the clock pinned one call's gap past
     # the ingest
     postings = system.bm25._postings
-    texts = leg_queries(n_calls, seed + 13, known=lambda e: all(t in postings for t in tokenize(e)))
+    known = lambda e: all(t in postings for t in tokenize(e))  # noqa: E731
+    texts = leg_queries(n_calls, seed + 13, known=known)
     now = calls[-1][0] + (calls[-1][0] - calls[0][0]) / len(calls)
     stages = {key: [] for key in LEG_STAGES + ("call_ms",)}
     answers = []
@@ -1990,10 +2097,94 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
         rec["launches"] = {name: c + launches[name] for name, c in rec["recall_launches"].items()}
     rec["recall_ms"] = {key: ms_stats(np.asarray(v) / 1e3) for key, v in stages.items() if v}
     rec["texts"], rec["answers"] = texts, answers
+
+    # staged recalls with usage writes, cycling the shapes; the index
+    # searches of their vector legs, each after a flush or not (R11)
+    staged_texts = leg_queries(n_staged, seed + 17, known=known)
+    searches, search = [0, 0], system.index.search
+
+    def counted_search(*args, **kwargs):
+        searches[bool(system.index._pending)] += 1
+        return search(*args, **kwargs)
+
+    system.index.search = counted_search
+    staged = {"call_ms": [], "by_shape": {}, "answers": [], "diagnostics": []}
+    if card:
+        reset_launches()
+    try:
+        pin_now(now)
+        for j, t in enumerate(staged_texts):
+            shape = STAGED_SHAPES[j % len(STAGED_SHAPES)]
+            t0 = time.perf_counter()
+            result = staged_call(system, shape, t, j, now)
+            ms = (time.perf_counter() - t0) * 1e3
+            staged["call_ms"].append(ms)
+            staged["by_shape"].setdefault(shape, []).append(ms)
+            staged["answers"].append([(s.memory.id, s.score) for s in result.memories])
+            staged["diagnostics"].append(result.diagnostics)
+        _sync(device)
+    finally:
+        pin_now(None)
+        del system.index.search
+    rec["staged_ms"] = ms_stats(np.asarray(staged["call_ms"]) / 1e3)
+    rec["staged_ms_by_shape"] = {sh: float(np.mean(v)) for sh, v in staged["by_shape"].items()}
+    rec["staged_searches"] = {"flushed": searches[0], "pending": searches[1]}
+    rec["staged_texts"], rec["staged_answers"] = staged_texts, staged["answers"]
+    rec["staged_diagnostics"] = staged["diagnostics"]
+    if card:
+        rec["staged_launches"] = read_launches()
+        for name, c in rec["staged_launches"].items():
+            rec["launches"][name] += c
+        if expect_k1 and (rec["staged_launches"]["groupmax"] < searches[0]
+                          or rec["staged_launches"]["v3_pass1"]
+                          or rec["staged_launches"]["v4_pass1"]):
+            raise AssertionError(f"system: staged launches {rec['staged_launches']}, K1 below "
+                                 f"the {searches[0]} searches of a flushed index")
+    # index_retrieve with no criterion scores every memory of the store: once
+    try:
+        pin_now(now)
+        t0 = time.perf_counter()
+        result = system.recall({"max_results": k})
+        rec["retrieve_all_s"] = time.perf_counter() - t0
+        rec["retrieve_all_answer"] = [(s.memory.id, s.score) for s in result.memories]
+    finally:
+        pin_now(None)
     system.flush()
     snapshot(system, f"{snapshot_dir}_recall")
     if after_recall is not None:
         after_recall()
+
+    # explicit feedback on the top answers of a few recalls, then one
+    # maintenance pass (the fact distillation over the newest memories)
+    try:
+        pin_now(now)
+        t0 = time.perf_counter()
+        rec["reinforced"] = [
+            system.reinforce_recall([m for m, _ in answers[i][:2]], helpful=i % 2 == 0)
+            for i in range(min(REINFORCED, len(answers)))]
+        rec["reinforce_s"] = time.perf_counter() - t0
+        newest_distill(system)
+        owners = {name: getattr(system, obj) if obj else system
+                  for name, obj, _ in MAINTENANCE_STEPS}
+        steps = {name: timed_calls(owners[name], meth) for name, _, meth in MAINTENANCE_STEPS
+                 } if card else {}
+        t0 = time.perf_counter()
+        try:
+            rec["maintenance"] = system.run_maintenance()
+        finally:
+            for name, _, meth in MAINTENANCE_STEPS if card else ():
+                vars(owners[name]).pop(meth, None)
+        rec["maintenance_s"] = time.perf_counter() - t0
+        if card:
+            rec["maintenance_steps_s"] = {name: acc[1] for name, acc in steps.items()}
+            rec["maintenance_steps_calls"] = {name: acc[0] for name, acc in steps.items()}
+        del system.facts.distill
+        result = system.recall(Query(query_text=texts[1], max_results=k))
+        rec["maintained_answer"] = [(s.memory.id, s.score) for s in result.memories]
+    finally:
+        pin_now(None)
+    system.flush()
+    snapshot(system, f"{snapshot_dir}_maintenance")
 
     # a forced refit, close, reopen
     t0 = time.perf_counter()
@@ -2017,24 +2208,26 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
 
 
 def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, k=ENGINE_K,
-                 seed=SEED, expect_k1=True) -> dict:
+                 seed=SEED, expect_k1=True, n_staged=STAGED_RECALLS) -> dict:
     """``MemorySystem`` on ``device`` over the engine phase's store under
     ``root`` (made quiet by ``make_store_quiet``), then a CPU twin in a
-    process of its own over a copy of the store under ``work``: each side
-    runs ``drive_system``. The twin starts once the card's side has timed
-    its open, ingest and recalls, so that nothing runs beside those host
-    clocks; the card's refit, close and reopen run beside the twin's start.
-    Then the two are compared: the stores after the
-    ingest and after the close kv row by kv row, the index's host arrays
-    bit for bit, the saved semantic models byte for byte, every recall's
-    answer (ids in order, scores rtol 1e-5, atol 1e-7) and the recall after
-    the reopen."""
+    process of its own over a copy of the store under ``work`` (the same
+    directory name: a scoring A/B assigns by it): each side runs
+    ``drive_system``. The twin starts once the card's side has timed its
+    open, ingest and recalls, plain and staged, so that nothing runs beside
+    those host clocks; the card's feedback, maintenance, refit, close and
+    reopen run beside the twin's start. Then the two are compared: the
+    stores after the ingest, the recalls, the maintenance and the close kv
+    row by kv row, the index's host arrays bit for bit, the saved semantic
+    models byte for byte, every recall's answer (ids in order, scores rtol
+    1e-5, atol 1e-7) and diagnostics, the maintenance reports, and the
+    recalls after the maintenance and the reopen."""
     import shutil
     from pathlib import Path
 
     t0 = time.perf_counter()
     work = Path(work)
-    twin_root = work / "store"
+    twin_root = work / Path(root).name  # the same name: the A/B subject
     shutil.copytree(root, twin_root)
     spawn = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
@@ -2042,10 +2235,11 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
 
         def start_twin():
             twin_job.append(pool.submit(drive_system, str(twin_root), "cpu",
-                                        str(work / "twin_ingest"), n, n_calls, k, seed))
+                                        str(work / "twin_ingest"), n, n_calls, k, seed,
+                                        n_staged=n_staged))
 
         rec = drive_system(root, device, work / "card_ingest", n, n_calls, k, seed, card=True,
-                           expect_k1=expect_k1, after_recall=start_twin)
+                           expect_k1=expect_k1, after_recall=start_twin, n_staged=n_staged)
         t1 = time.perf_counter()
         twin = twin_job[0].result()
         rec["twin_wait_s"] = time.perf_counter() - t1
@@ -2058,24 +2252,106 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
     same_hits("system recall after the reopen vs the twin", rec.pop("reopen_answer"),
               twin.pop("reopen_answer"))
     rec["answers_checked"] = len(rec.pop("texts"))
+    if twin["staged_texts"] != rec["staged_texts"]:
+        raise AssertionError("system: the twin drew other staged queries")
+    for j, (got, want) in enumerate(zip(rec.pop("staged_answers"), twin.pop("staged_answers"))):
+        same_hits(f"system staged recall {STAGED_SHAPES[j % len(STAGED_SHAPES)]} vs the twin",
+                  got, want)
+    if rec.pop("staged_diagnostics") != twin.pop("staged_diagnostics"):
+        raise AssertionError("system: staged diagnostics differ from the twin's")
+    rec["staged_checked"] = len(rec.pop("staged_texts"))
+    same_hits("system index_retrieve of every memory vs the twin",
+              rec.pop("retrieve_all_answer"), twin.pop("retrieve_all_answer"))
+    if rec["reinforced"] != twin["reinforced"]:
+        raise AssertionError("system: reinforce_recall counts differ from the twin's")
+    if rec["maintenance"] != twin["maintenance"]:
+        raise AssertionError(f"system: the maintenance report {rec['maintenance']} differs "
+                             f"from the twin's {twin['maintenance']}")
+    same_hits("system recall after maintenance vs the twin", rec.pop("maintained_answer"),
+              twin.pop("maintained_answer"))
     t1 = time.perf_counter()
-    rec["stores_after_ingest"] = compare_stores(work / "card_ingest", work / "twin_ingest")
-    with np.load(work / "card_ingest" / "index.npz") as a, \
-            np.load(work / "twin_ingest" / "index.npz") as b:
-        for name in ("vecs", "scales", "valid"):
-            if not np.array_equal(a[name], b[name]):
-                raise AssertionError(f"system: the index's {name} differs from the twin's")
-    rec["stores_after_recall"] = compare_stores(work / "card_ingest_recall",
-                                                work / "twin_ingest_recall")
-    rec["stores_after_close"] = compare_stores(root, twin_root)
+    stages = {"stores_after_ingest": (work / "card_ingest", work / "twin_ingest"),
+              "stores_after_recall": (work / "card_ingest_recall", work / "twin_ingest_recall"),
+              "stores_after_maintenance": (work / "card_ingest_maintenance",
+                                           work / "twin_ingest_maintenance"),
+              "stores_after_close": (root, twin_root)}
+    # one sqlite connection per thread: the joins run in sqlite, off the GIL
+    with concurrent.futures.ThreadPoolExecutor(len(stages)) as pool:
+        compared = {stage: pool.submit(compare_stores, *dirs) for stage, dirs in stages.items()}
+        with np.load(work / "card_ingest" / "index.npz") as a, \
+                np.load(work / "twin_ingest" / "index.npz") as b:
+            for name in ("vecs", "scales", "valid"):
+                if not np.array_equal(a[name], b[name]):
+                    raise AssertionError(f"system: the index's {name} differs from the twin's")
+        for stage, job in compared.items():
+            rec[stage] = job.result()
     for suffix in (".json", ".npz"):
         name = f"semantic_model{suffix}"
         if (Path(root) / name).read_bytes() != (twin_root / name).read_bytes():
             raise AssertionError(f"system: the saved {name} differs from the twin's")
     rec["compare_s"] = time.perf_counter() - t1
     twin.pop("texts")
+    twin.pop("staged_texts")
     rec["twin"] = twin
     rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the recall-quality eval through the port's command line
+# ---------------------------------------------------------------------------
+
+EVAL_SUITES = ("smoke", "locomo-gate")
+EVAL_LADDER = "vector_only,+spreading,+bm25,+rerank,+facts,full"
+EVAL_DUMPS = "tests/torch_eval_dumps"  # the JAX package's dumps, under PYTHONHASHSEED=0
+
+
+def _eval_process(suite: str, device: str, dump) -> subprocess.Popen:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "shodh_tpu_torch.cli", "eval", "--suite", suite, "--layers",
+         EVAL_LADDER, "--dump", str(dump), "--device", device],
+        cwd=root, env={**os.environ, "PYTHONHASHSEED": "0"}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _eval_report(proc: subprocess.Popen, what: str) -> dict:
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"eval: {what} exited {proc.returncode}: {err[-2000:]}")
+    return json.loads(out)
+
+
+def phase_eval(work, device="cuda", suites=EVAL_SUITES) -> dict:
+    """``python -m shodh_tpu_torch.cli eval`` of each suite over the whole
+    layer ladder on ``device``, one suite at a time, each in a process under
+    ``PYTHONHASHSEED=0`` with nothing else running beside it. Each suite's
+    ``--dump`` must equal the JAX package's dump committed under
+    ``tests/torch_eval_dumps`` byte for byte (tier-1 holds the port's CPU
+    dump to the same file). Returns the metrics at ``full``, each layer's
+    recall latency percentiles on the device, and the seconds."""
+    from pathlib import Path
+
+    work = Path(work)
+    root = Path(os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    rec = {"phase": "eval", "layers": EVAL_LADDER, "suites": {}}
+    for s in suites:
+        t1 = time.perf_counter()
+        report = _eval_report(_eval_process(s, device, work / f"{s}_device.json"),
+                              f"{s} on {device}")
+        seconds = time.perf_counter() - t1
+        got = (work / f"{s}_device.json").read_bytes()
+        if got != (root / EVAL_DUMPS / f"{s}.json").read_bytes():
+            raise AssertionError(f"eval: the {s} dump differs from {EVAL_DUMPS}/{s}.json")
+        full = report["layers"]["full"]
+        rec["suites"][s] = {
+            "s": seconds, "cases": full["n_cases"],
+            "full": {m: full[m] for m in ("ndcg@10", "recall@10", "mrr", "p@1", "map")},
+            "latency_ms": {layer: {p: v[f"latency_{p}_ms"] for p in ("p50", "p95", "p99")}
+                           for layer, v in report["layers"].items()},
+        }
+    rec["eval_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -2168,6 +2444,10 @@ def main() -> int:
         make_store_quiet(holder, tmp)
         del holder, engines
         torch.cuda.empty_cache()
+        # phase 9 first: its latencies are host clocks, and phase 8's twin
+        # would run beside them
+        with tempfile.TemporaryDirectory() as ev:
+            emit({**phase_eval(ev), "card": card})
         with tempfile.TemporaryDirectory() as work:
             rec_system = phase_system(tmp, work)
         emit(rec_system)
@@ -2185,6 +2465,7 @@ def main() -> int:
          "b16_ms": k1["k1_b16_ms"], "b16_bound_ms": k1["k1_b16_bound_ms"],
          "b16_library_ms": k1["k1_b16_library_ms"],
          "system_launches": rec_system["launches"]["groupmax"],
+         "staged_launches": rec_system["staged_launches"]["groupmax"],
          "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],
          "b8_bound_ms": rec_system["k1_b8"]["bound_ms"],
          "b8_library_ms": rec_system["k1_b8"]["library_ms"],

@@ -1,0 +1,96 @@
+"""Command line of the port (port of the ``eval`` subcommand of
+``shodh_tpu/cli.py``).
+
+    python -m shodh_tpu_torch.cli eval --suite smoke [--device cpu] [--dump out.json]
+
+``eval`` runs the recall-quality harness: a fresh ``MemorySystem`` ingests
+the suite's corpus, every case is recalled under each mode of ``--layers``,
+and the report's metrics (with latency percentiles) print as JSON. The
+system runs on the card unless ``--device cpu`` asks for the CPU.
+``--dump`` writes the report without its latency fields, the determinism
+artifact that repeats and the JAX package's run must equal byte for byte.
+With ``--baseline`` the exit code is 0 when no gated metric fell more than
+``--tolerance`` below the baseline's, else 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+from pathlib import Path
+
+SUITES = {
+    "smoke": ("tests/recall/corpora/shodh-smoke.jsonl", "tests/recall/smoke_cases.jsonl"),
+    "locomo-gate": ("tests/recall/corpora/locomo-gate.jsonl",
+                    "tests/recall/locomo-gate-cases.jsonl"),
+    "locomo-full": ("tests/recall/corpora/locomo.jsonl", "tests/recall/locomo_cases.jsonl"),
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="shodh-tpu-torch",
+                                description="the PyTorch/CUDA port of shodh-tpu")
+    sub = p.add_subparsers(dest="cmd")
+
+    e = sub.add_parser("eval", help="run the recall-quality harness")
+    e.add_argument(
+        "--suite",
+        choices=tuple(SUITES),
+        default=None,
+        help="named suite shortcut (sets --corpus/--cases)",
+    )
+    e.add_argument("--corpus", default="tests/recall/corpora/shodh-smoke.jsonl")
+    e.add_argument("--cases", default="tests/recall/smoke_cases.jsonl")
+    e.add_argument("--eval-now", default="2026-05-01T00:00:00Z")  # after the smoke corpus
+    e.add_argument("--baseline", default=None)
+    e.add_argument("--tolerance", type=float, default=0.02)
+    e.add_argument("--dump", default=None, help="write the report JSON to this path")
+    e.add_argument("--layers", default="full")
+    e.add_argument("--device", default=None,
+                   help="torch device of the system (default: the CUDA card; 'cpu')")
+
+    args = p.parse_args(argv)
+
+    if args.cmd == "eval":
+        from shodh_tpu_torch.engine.memory_system import MemorySystem
+        from shodh_tpu_torch.harness.runner import compare_to_baseline, run_suite
+        from shodh_tpu_torch.types import LayerMode
+
+        if args.suite:
+            args.corpus, args.cases = SUITES[args.suite]
+        tmp = tempfile.mkdtemp()
+        modes = [LayerMode.parse(m) for m in args.layers.split(",")]
+        report = run_suite(
+            make_system=lambda: MemorySystem(Path(tmp) / "sys", device=args.device),
+            corpus_path=args.corpus,
+            cases_path=args.cases,
+            suite_name=args.suite or "cli",
+            eval_now=args.eval_now,
+            layer_modes=modes,
+        )
+        out = report.to_dict()
+        print(json.dumps(out, indent=1, sort_keys=True))
+        if args.dump:
+            # the determinism artifact: no wall-clock latency fields
+            det = {
+                **out,
+                "layers": {
+                    name: {k: v for k, v in layer.items() if not k.startswith("latency_")}
+                    for name, layer in out["layers"].items()
+                },
+            }
+            Path(args.dump).write_text(json.dumps(det, indent=1, sort_keys=True) + "\n")
+        if args.baseline:
+            ok, diffs = compare_to_baseline(report, args.baseline, tolerance=args.tolerance)
+            print(json.dumps(diffs, indent=1), file=sys.stderr)
+            return 0 if ok else 1
+        return 0
+
+    p.print_help()
+    return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

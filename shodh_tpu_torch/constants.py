@@ -434,3 +434,12 @@ LINEAGE_CONFIDENCE = {
     "related_to": 0.5,
 }
 LINEAGE_MIN_STORE_CONFIDENCE = 0.20
+
+# Prospective memory's recall boost (engine/prospective.py)
+PROSPECTIVE_BOOST_PER_MATCH = 0.25
+PROSPECTIVE_BOOST_MAX = 0.75
+
+# Explicit feedback (MemorySystem.reinforce_recall) and maintenance's decay
+HEBBIAN_BOOST_HELPFUL = 0.025
+HEBBIAN_DECAY_MISLEADING = 0.10
+EMOTIONAL_DECAY_MODULATION = 0.3

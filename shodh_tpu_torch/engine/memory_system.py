@@ -1,31 +1,28 @@
-"""MemorySystem, the per-user memory engine: ``remember``'s ingest joined to
-the device funnel (port of the ingest, open, maintenance and device-funnel
-parts of ``shodh_tpu/engine/memory_system.py``).
+"""MemorySystem, the per-user memory engine (port of
+``shodh_tpu/engine/memory_system.py``).
 
 One object opened on a data directory: the durable store, the text vector
 index on the card (``device=None``; ``device="cpu"`` for a CPU twin), BM25
 with its native scorer, the entity graph with ``DeviceSpreader``, the query
 parser, the NER and gazetteer, the fact stores, feedback, sessions,
-interference, replay, lineage and introspection. It reads and writes the
-same files as the JAX package's ``MemorySystem`` (``memories.db``, ``bm25/``,
-``graph/``, the ``shodh-tpu-index-v1`` snapshot at ``index/text``,
-``semantic_model``, and the kv keys ``meta/index_epoch``, ``meta/lexical_fp``
-and the ``text_rows`` high-water mark), so a store written by either package
-opens in the other without recovery or migration.
+interference, replay, lineage, introspection, prospective memory, todos and
+file knowledge. It reads and writes the same files as the JAX package's
+``MemorySystem`` (``memories.db``, ``bm25/``, ``graph/``, the
+``shodh-tpu-index-v1`` snapshot at ``index/text``, ``semantic_model``, and
+the kv keys ``meta/index_epoch``, ``meta/lexical_fp`` and the ``text_rows``
+high-water mark), so a store written by either package opens in the other
+without recovery or migration.
 
-What differs from the JAX package's class:
+``recall`` routes as the reference's ``_recall_impl``: the robotics modes
+and filter-only queries to ``staged_funnel.index_retrieve``, plain hybrid
+text queries to the device funnel (``funnel_legs.device_funnel_recall``),
+and everything else, or a device-funnel query that falls through, to the
+staged host funnel (``staged_funnel.staged_recall``).
 
-- ``recall`` serves plain hybrid text queries through the device funnel
-  (``funnel_legs.device_funnel_recall``). Every query the reference serves
-  from ``_index_retrieve`` or its staged host funnel raises
-  ``NotImplementedError`` naming ROADMAP.md section 1, item 5: the robotics
-  modes, filter-only and non-plain queries, ``recall_with_diagnostics``,
-  ``SHODH_DEVICE_FUNNEL=0``, the fusion-variant env guards, an active scoring
-  A/B and ``SHODH_ENUM_DAY_UNION`` on an enumeration-shaped query.
-- A device error of the pool call reaches the caller, where the reference
-  serves the staged funnel instead.
-- ``prospective``, ``todos`` and ``files`` stay ``None`` (no step of ingest or
-  the device funnel reads them), and there is no persistent jit cache.
+What differs from the JAX package's class: a device error of the device
+funnel's pool call reaches the caller, where the reference serves the
+staged funnel instead (an error of the staged vector leg's ``index.search``
+reaches the caller in both); and there is no persistent jit cache.
 """
 
 from __future__ import annotations
@@ -34,8 +31,10 @@ import functools
 import os
 import sys
 import threading
+import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 
@@ -43,9 +42,11 @@ from shodh_tpu_torch import constants as C
 from shodh_tpu_torch.device import resolve_device
 from shodh_tpu_torch.engine import semantics
 from shodh_tpu_torch.engine.ab_testing import ABTestManager
+from shodh_tpu_torch.engine.decay import hybrid_decay_factor
 from shodh_tpu_torch.engine.device_funnel import DeviceRecallEngine
 from shodh_tpu_torch.engine.facts import SemanticFactStore
 from shodh_tpu_torch.engine.feedback import FeedbackStore
+from shodh_tpu_torch.engine.files import FileMemoryStore
 from shodh_tpu_torch.engine.funnel_legs import (
     context_prev,
     context_prev_of,
@@ -57,10 +58,13 @@ from shodh_tpu_torch.engine.importance import calculate_importance
 from shodh_tpu_torch.engine.interference import InterferenceEngine
 from shodh_tpu_torch.engine.introspection import ConsolidationEventBuffer
 from shodh_tpu_torch.engine.lineage import LineageStore
+from shodh_tpu_torch.engine.prospective import ProspectiveStore
 from shodh_tpu_torch.engine.replay import ReplayEngine
 from shodh_tpu_torch.engine.sessions import SessionStore
+from shodh_tpu_torch.engine.staged_funnel import index_retrieve, staged_recall
 from shodh_tpu_torch.engine.temporal_facts import TemporalFactStore
-from shodh_tpu_torch.engine.tiers import SessionMemory, WorkingMemory
+from shodh_tpu_torch.engine.tiers import SessionMemory, WorkingMemory, promotion_target
+from shodh_tpu_torch.engine.todos import TodoStore
 from shodh_tpu_torch.graph.graph_memory import GraphMemory
 from shodh_tpu_torch.index.device_index import DeviceVectorIndex
 from shodh_tpu_torch.models.chunking import chunk_content
@@ -79,19 +83,12 @@ from shodh_tpu_torch.types import (
     Query,
     RecallResult,
     RetrievalMode,
+    ScoredMemory,
     deterministic_memory_id,
 )
-from shodh_tpu_torch.utils.clock import scoring_now
+from shodh_tpu_torch.utils.clock import days_between, scoring_now
 from shodh_tpu_torch.utils.hashing import content_hash
 from shodh_tpu_torch.utils.tracing import span
-
-_NEEDS_STAGED = "ROADMAP.md section 1, item 5 (the staged funnel and _index_retrieve)"
-
-
-def _staged(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is served by the staged funnel, which waits for "
-                               f"{_NEEDS_STAGED}")
-
 
 def _normalized_rows(embeddings) -> np.ndarray:
     """Caller-precomputed embedding -> one L2-normalized index row."""
@@ -109,6 +106,20 @@ def _locked(fn):
             return fn(self, *args, **kw)
 
     return wrapper
+
+
+@dataclass
+class SystemStats:
+    total_memories: int
+    working_count: int
+    session_count: int
+    index_rows: int
+    index_deleted: int
+    embed_cache_hits: int
+    embed_cache_misses: int
+
+    def to_dict(self) -> dict:
+        return self.__dict__.copy()
 
 
 class MemorySystem:
@@ -179,6 +190,10 @@ class MemorySystem:
         self._maybe_recover_index()
         self._init_subsystems()
 
+    @property
+    def embedder_name(self) -> str:
+        return self.embedder.name
+
     def _init_subsystems(self) -> None:
         """Attach the subsystems. Split out so tests can build bare cores."""
         self.query_parser = QueryParser()
@@ -192,9 +207,12 @@ class MemorySystem:
         self.feedback = FeedbackStore(self.storage.kv)
         self.interference = InterferenceEngine(self)
         self.replay = ReplayEngine(self)
+        self.prospective = ProspectiveStore(self.storage.kv)
         self.lineage = LineageStore(self.storage.kv)
         self.introspection = ConsolidationEventBuffer()
+        self.todos = TodoStore(self.storage.kv, self.embedder)
         self.sessions = SessionStore(self.storage.kv)
+        self.files = FileMemoryStore(self.storage.kv, self.embedder)
         self._reload_semantic_model()
         self._maybe_migrate_lexical()
 
@@ -211,8 +229,8 @@ class MemorySystem:
     ) -> Memory:
         """Store an experience. ``enrich=False`` is the streaming fast path:
         dedup/importance/embed/index/BM25/tiers run now, while NER, graph,
-        temporal facts, interference, replay and lineage are left for a
-        later enrichment pass."""
+        temporal facts, interference, replay and lineage are left for
+        ``enrich_pending``."""
         if isinstance(experience, dict):
             experience = Experience.from_dict(experience)
         now = created_at or scoring_now()
@@ -443,44 +461,51 @@ class MemorySystem:
         return self.remember(experience)
 
     # ------------------------------------------------------------------
-    # recall: the device funnel
+    # recall
     # ------------------------------------------------------------------
 
-    @_locked
     def recall(self, query: Query | dict) -> RecallResult:
-        """A plain hybrid text query through the device funnel: the legs, the
-        pool program on the index's device and the ``_rank_pool`` epilogue."""
+        return self._recall_impl(query, diagnostics=False)
+
+    def recall_with_diagnostics(self, query: Query | dict) -> RecallResult:
+        return self._recall_impl(query, diagnostics=True)
+
+    @_locked
+    def _recall_impl(self, query: Query | dict, diagnostics: bool) -> RecallResult:
         if isinstance(query, dict):
             query = Query.from_dict(query)
         now = scoring_now()
+        t_start = time.perf_counter()
+
+        # The robotics modes and filter-only queries bypass the semantic funnel
         if query.retrieval_mode in (
             RetrievalMode.SPATIAL,
             RetrievalMode.MISSION,
             RetrievalMode.ACTION_OUTCOME,
         ) or (query.query_text is None and query.query_embedding is None):
-            raise _staged("a robotics-mode or filter-only query (_index_retrieve)")
+            return index_retrieve(self, query, now)
+
         k = max(1, query.max_results)
-        if not (
+        # The device funnel serves plain hybrid text queries (None where it
+        # falls through: a fusion-variant env, an active scoring A/B, the
+        # enumeration day-bucket union, an HBM spill); SHODH_DEVICE_FUNNEL=0
+        # sends every query to the staged funnel
+        if (
             os.environ.get("SHODH_DEVICE_FUNNEL", "1") == "1"
             and query.query_text
             and query.query_embedding is None
             and query.retrieval_mode == RetrievalMode.HYBRID
             and query.layers >= LayerMode.FULL
             and query.offset == 0
+            and not diagnostics
             and self._is_plain_query(query)
         ):
-            raise _staged("a query the device funnel does not model (filters, modes, "
-                          "layers, an offset, an embedding, or SHODH_DEVICE_FUNNEL=0)")
-        if self._device_funnel is None:
-            self._device_funnel = DeviceRecallEngine(self)
-        result = device_funnel_recall(self, self._device_funnel, query, k, now)
-        if result is None:
-            raise _staged("a fusion-variant env, an active scoring A/B, the enumeration "
-                          "day-bucket union or a pool the program cannot serve")
-        return result
-
-    def recall_with_diagnostics(self, query: Query | dict) -> RecallResult:
-        raise _staged("recall with diagnostics")
+            if self._device_funnel is None:
+                self._device_funnel = DeviceRecallEngine(self)
+            result = device_funnel_recall(self, self._device_funnel, query, k, now)
+            if result is not None:
+                return result
+        return staged_recall(self, query, k, now, t_start, diagnostics)
 
     @staticmethod
     def _is_plain_query(query: Query) -> bool:
@@ -547,6 +572,250 @@ class MemorySystem:
         self.working.remove(memory_id)
         self.session.remove(memory_id)
         return self.storage.delete(memory_id)
+
+    def search_modality(
+        self, embedding, modality: str = "image", k: int = 10
+    ) -> list[ScoredMemory]:
+        """A caller's embedding against one modality's index."""
+        midx = self.modality_indexes.get(modality)
+        if midx is None or midx.n_active == 0:
+            return []
+        vec = np.asarray(embedding, np.float32)
+        vec = vec / max(float(np.linalg.norm(vec)), 1e-12)
+        vals, rows = midx.search(vec[None, :], k=k)
+        out = []
+        for val, row in zip(vals[0], rows[0]):
+            if row < 0:
+                continue
+            mid = self.storage.memory_for_row(int(row), modality=modality)
+            mem = self.storage.get(mid) if mid else None
+            if mem is not None:
+                out.append(ScoredMemory(memory=mem, score=float(val)))
+        return out
+
+    @_locked
+    def reinforce_recall(self, memory_ids: list[str], helpful: bool = True) -> int:
+        """Explicit feedback: strengthen or weaken recalled memories; closes
+        the loop of an active scoring A/B. Drops the device funnel's mirrors
+        (importance and momentum moved)."""
+        n = 0
+        for mid in memory_ids:
+            mem = self.storage.get(mid)
+            if mem is None:
+                continue
+            if helpful:
+                mem.importance = min(1.0, mem.importance + C.HEBBIAN_BOOST_HELPFUL)
+            else:
+                mem.importance = max(
+                    C.IMPORTANCE_FLOOR, mem.importance * (1.0 - C.HEBBIAN_DECAY_MISLEADING)
+                )
+            self.storage.update(mem)
+            if self.feedback is not None:
+                self.feedback.record(mid, 1.0 if helpful else -1.0, scoring_now())
+            n += 1
+        if self.graph is not None:
+            self.graph.reinforce_memories(memory_ids, helpful)
+        assignment = self._active_scoring_assignment()
+        if assignment and n:
+            exp, variant, _ = assignment
+            self.ab.record(exp.id, variant, "click" if helpful else "negative")
+            if helpful:
+                self.ab.record(exp.id, variant, "positive")
+        if self._device_funnel is not None:
+            self._device_funnel.invalidate()
+        return n
+
+    # ------------------------------------------------------------------
+    # maintenance
+    # ------------------------------------------------------------------
+
+    @_locked
+    def enrich_pending(self, limit: int = 500) -> int:
+        """Run the deferred enrichment of fast-path ingests
+        (``remember(enrich=False)``): NER, toponyms, temporal refs, graph,
+        temporal facts, interference (one batched search for the pass),
+        replay, lineage, and the BM25 document rebuilt with its entities.
+        Returns the count."""
+        now = scoring_now()
+        done = 0
+        deferred_interference: list[tuple] = []
+        successor_of: Optional[dict[str, str]] = None
+        # materialize first: processing mutates rows, and a live sqlite
+        # cursor can re-yield updated rows mid-iteration
+        pending = [
+            mem for mem in self.storage.iter_memories()
+            if mem.experience.metadata.get("_enrich_pending") == "1"
+        ]
+        for mem in pending:
+            if done >= limit:
+                break
+            exp = mem.experience
+            entity_labels: dict[str, str] = {}
+            entity_fine: dict[str, str] = {}
+            if self.ner is not None:
+                mentions = self.ner.extract(exp.content)
+                entity_labels = {
+                    m.text: m.label for m in mentions
+                    if m.confidence >= C.NER_GRAPH_CONFIDENCE_FLOOR
+                }
+                entity_fine = {
+                    m.text: m.fine for m in mentions
+                    if m.fine and m.confidence >= C.NER_GRAPH_CONFIDENCE_FLOOR
+                }
+                if not exp.entities:
+                    exp.entities = [m.text for m in mentions]
+            if self.gazetteer is not None and not exp.toponyms:
+                exp.toponyms = [t.name for t in self.gazetteer.extract_toponyms(exp.content)]
+            if self.query_parser is not None and not exp.temporal_refs:
+                exp.temporal_refs = self.query_parser.extract_temporal_refs(exp.content, now)
+            if self.graph is not None and exp.entities:
+                self.graph.ingest_experience(
+                    mem, now=now, entity_labels=entity_labels, entity_fine=entity_fine
+                )
+            if self.temporal_facts is not None:
+                self.temporal_facts.extract_and_store(mem, now=now)
+            if self.interference is not None and mem.vector_row >= 0:
+                deferred_interference.append(
+                    (mem, self.index.get_vectors([mem.vector_row])[0], now)
+                )
+            if self.replay is not None:
+                self.replay.register(mem, now=now)
+            if self.lineage is not None and exp.entities and self.storage.count() > 1:
+                self.lineage.infer_for_memory(mem, self.storage, self.index, now)
+            del exp.metadata["_enrich_pending"]
+            self.storage.update(mem)
+            if self.bm25 is not None and exp.entities:
+                # Rebuild the posting through ingest's path (context terms and
+                # the Okapi class kept); forward=False, and the folds this doc
+                # received from its successors are re-applied below
+                prev = prev2 = None
+                if (
+                    exp.tags
+                    and exp.experience_type == ExperienceType.CONVERSATION
+                ):
+                    prev = context_prev_of(self, mem.id)
+                    if prev is not None and C.context_index_weight2() > 0.0:
+                        prev2 = context_prev_of(self, prev.id)
+                index_lexical(self, mem.id, exp, prev, prev2, forward=False)
+                if successor_of is None:
+                    # reverse chain map, built once per pass
+                    successor_of = {
+                        raw.decode(): mid
+                        for mid, raw in self.storage.kv.scan_prefix("ctxprev", "")
+                    }
+                fwd_w = C.context_forward_weight()
+                sid = successor_of.get(mem.id)
+                if sid is not None and fwd_w > 0.0:
+                    succ = self.storage.get(sid)
+                    if succ is not None:
+                        self.bm25.add_context_terms(mem.id, succ.experience.content, fwd_w)
+                    fwd2_w = C.context_forward_weight2()
+                    s2id = successor_of.get(sid)
+                    if s2id is not None and fwd2_w > 0.0:
+                        s2 = self.storage.get(s2id)
+                        if s2 is not None:
+                            self.bm25.add_context_terms(mem.id, s2.experience.content, fwd2_w)
+            done += 1
+        if self.interference is not None and deferred_interference:
+            # every row exists before the pass, so one batched search equals
+            # the per-item searches
+            self.interference.on_store_batch_existing(deferred_interference)
+        return done
+
+    def run_maintenance(self) -> dict[str, Any]:
+        """One maintenance pass: enrich, refit the semantic model, drop the
+        device funnel's mirrors, then tier promotion, activation decay, graph
+        maintenance, replay, fact distillation, temporal fact pruning, index
+        compaction (rows remapped in the store, snapshot saved) and the
+        graph's flush. Returns the report."""
+        now = scoring_now()
+        report: dict[str, Any] = {}
+        report["enriched"] = self.enrich_pending()
+        report["semantics_refit"] = self.adapt_semantics()
+        if self._device_funnel is not None:
+            self._device_funnel.invalidate()  # decay and promotion move the mirrors
+
+        # 1. Tier consolidation and promotion
+        promoted = 0
+        for mem in list(self.working.items()) + list(self.session.items()):
+            target = promotion_target(mem, now)
+            if target is not None:
+                mem.tier = target
+                self.storage.update(mem)
+                if target == MemoryTier.SESSION:
+                    self.working.remove(mem.id)
+                    self.session.add(mem)
+                else:
+                    self.session.remove(mem.id)
+                promoted += 1
+        report["promoted"] = promoted
+
+        # 2. Activation decay, slowed by arousal
+        decayed = 0
+        for mem in self.storage.iter_memories():
+            ref_time = mem.last_accessed or mem.created_at
+            age_days = days_between(ref_time, now)
+            if age_days <= 0:
+                continue
+            factor = hybrid_decay_factor(age_days, potentiated=mem.importance > 0.8)
+            arousal = mem.experience.emotional.arousal
+            factor = factor + (1.0 - factor) * arousal * C.EMOTIONAL_DECAY_MODULATION
+            new_activation = max(C.INTERFERENCE_ACTIVATION_FLOOR, mem.activation * factor)
+            if abs(new_activation - mem.activation) > 1e-6:
+                mem.activation = new_activation
+                self.storage.update(mem)
+                decayed += 1
+        report["decayed"] = decayed
+
+        # 3. Graph maintenance
+        if self.graph is not None:
+            report["graph"] = self.graph.run_maintenance(now=now)
+
+        # 4. Replay cycle
+        if self.replay is not None:
+            report["replay"] = self.replay.run_cycle(now=now)
+
+        # 5. Fact distillation
+        if self.facts is not None:
+            report["facts_distilled"] = self.distill_facts()
+
+        # 6. Temporal fact decay
+        if self.temporal_facts is not None:
+            report["temporal_facts_pruned"] = self.temporal_facts.prune(now=now)
+
+        # 7. Index compaction: the remap and the epoch bump commit in one kv
+        # batch, then the snapshot persists at once (a crash on either side
+        # leaves the epochs unequal, which the open's recovery rebuilds)
+        mapping = self.index.maybe_compact()
+        if mapping is not None:
+            self.storage.remap_rows(mapping, epoch=self.index.epoch)
+            self.index.save(self.data_dir / "index" / "text")
+            report["index_compacted"] = True
+
+        # 8. Durability: the graph's buffered mutations
+        if self.graph is not None:
+            self.graph.flush()
+
+        return report
+
+    def distill_facts(self) -> int:
+        """Semantic consolidation of episodic clusters into facts."""
+        if self.facts is None:
+            return 0
+        return self.facts.distill(self.storage, now=scoring_now())
+
+    def stats(self) -> SystemStats:
+        hits = getattr(self.embedder, "hits", 0)
+        misses = getattr(self.embedder, "misses", 0)
+        return SystemStats(
+            total_memories=self.storage.count(),
+            working_count=len(self.working),
+            session_count=len(self.session),
+            index_rows=len(self.index),
+            index_deleted=self.index.n_deleted,
+            embed_cache_hits=hits,
+            embed_cache_misses=misses,
+        )
 
     # ------------------------------------------------------------------
     # open-time healing: crash recovery and the lexical migration

@@ -82,6 +82,16 @@ PORT_MODULES = [
     "shodh_tpu_torch.engine.ab_testing",
     "shodh_tpu_torch.utils.tracing",
     "shodh_tpu_torch.engine.memory_system",
+    "shodh_tpu_torch.engine.staged_funnel",
+    "shodh_tpu_torch.engine.prospective",
+    "shodh_tpu_torch.engine.todos",
+    "shodh_tpu_torch.engine.files",
+    "shodh_tpu_torch.harness.fixtures",
+    "shodh_tpu_torch.harness.metrics",
+    "shodh_tpu_torch.harness.runner",
+    "shodh_tpu_torch.harness.decay_sim",
+    "shodh_tpu_torch.harness.agent_loop",
+    "shodh_tpu_torch.cli",
     "chip_smoke",
 ]
 _ABSENT = ("jax", "shodh_tpu", "msgpack")  # never imported by a port process

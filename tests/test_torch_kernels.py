@@ -274,3 +274,63 @@ def test_interference_on_the_card_launches_k1_and_equals_the_cpu():
     assert sorted(got_act) == sorted(want_act) and len(got) > 5
     np.testing.assert_allclose([got_act[m] for m in sorted(got_act)],
                                [want_act[m] for m in sorted(got_act)], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_staged_recall_on_the_card_launches_k1_and_equals_the_cpu(tmp_path):
+    """Staged recalls (a tag filter, rungs below FULL, an offset, the device
+    funnel off) of a ``MemorySystem`` whose text index holds 65,600 rows
+    more than its memories (69,632 rows of capacity, past the 65,536 where
+    ``index.search`` takes ``two_level_topk``): each recall's vector leg
+    launches K1 once on the card, and every answer equals the same system
+    over a CPU index (ids in order, scores rtol 1e-5, atol 1e-7)."""
+    import os
+    from datetime import datetime, timezone
+
+    from shodh_tpu_torch.engine.memory_system import MemorySystem
+    from shodh_tpu_torch.types import Experience
+    from shodh_tpu_torch.utils.clock import pin_now
+
+    _need_cuda()
+    rng = np.random.default_rng(31)
+    words = "kiln glaze pottery studio kafka cluster failover cache hotel Lisbon beach".split()
+    texts = [f"{['Dana', 'Ravi', 'Melanie'][i % 3]}: " + " ".join(rng.choice(words, 6)) + f" {i}"
+             for i in range(48)]
+    pad = rng.standard_normal((65_600, 384)).astype(np.float32)
+    pad /= np.linalg.norm(pad, axis=1, keepdims=True)
+    queries = [({"query_text": "Dana kiln glaze", "tags": ["t1"]}, {}),
+               ({"query_text": "kafka failover cache", "layers": "vector_only"}, {}),
+               ({"query_text": "Melanie pottery studio", "layers": "+bm25"}, {}),
+               ({"query_text": "hotel in Lisbon", "offset": 2}, {}),
+               ({"query_text": "Ravi beach hotel"}, {"SHODH_DEVICE_FUNNEL": "0"})]
+    out = {}
+    for device in ("cuda", "cpu"):
+        pin_now(datetime(2024, 6, 3, 8, tzinfo=timezone.utc))
+        try:
+            system = MemorySystem(tmp_path / device, device=device)
+            system.batch_remember([Experience(content=t, tags=[f"t{i % 3}"])
+                                   for i, t in enumerate(texts)])
+            system.index.add(pad)  # rows of no memory: the vector leg skips them
+            system.index.flush()
+            assert system.index.capacity == 69_632
+            answers, launches = [], []
+            for q, knobs in queries:
+                before = tf.groupmax_scores.launches
+                os.environ.update(knobs)
+                try:
+                    r = system.recall(q)
+                finally:
+                    for k in knobs:
+                        os.environ.pop(k)
+                launches.append(tf.groupmax_scores.launches - before)
+                answers.append([(s.memory.id, s.score) for s in r.memories])
+                assert "device_funnel" not in r.memories[0].attribution
+            system.close()
+        finally:
+            pin_now(None)
+        out[device] = answers, launches
+    (got, launches), (want, cpu_launches) = out["cuda"], out["cpu"]
+    assert launches == [1] * len(queries) and cpu_launches == [0] * len(queries)
+    for g, w in zip(got, want):
+        assert [m for m, _ in g] == [m for m, _ in w] and g
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=1e-5, atol=1e-7)

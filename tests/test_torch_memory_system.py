@@ -13,8 +13,9 @@ equal kv row for kv row, namespace by namespace, in ``memories.db``,
 semantic models. Plain recalls (usage writes on) must give the same ranked
 answers and leave equal stores; so must ``forget`` and ``upsert``, a reopen
 across packages (quiet: no recovery, no migration), crash recovery of the
-rows past the snapshot tail and ``rebuild_index``. What the port does not
-serve yet raises ``NotImplementedError``.
+rows past the snapshot tail and ``rebuild_index``; and so must the queries
+that the staged funnel and ``index_retrieve`` serve
+(``test_torch_staged_funnel.py`` covers those in full).
 """
 
 import contextlib
@@ -300,16 +301,27 @@ def test_rebuild_index_equals_reference(stores, tmp_path):
     {"query_text": "pottery", "retrieval_mode": "spatial"},
     {"tags": ["conv-1"]},
 ])
-def test_what_the_staged_funnel_serves_raises(stores, tmp_path, query):
-    shutil.copytree(stores / "port", tmp_path / "s")
-    system = open_system("port", tmp_path / "s")
-    try:
-        with pytest.raises(NotImplementedError, match="item 5"):
-            system.recall(query)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            system.recall_with_diagnostics({"query_text": "pottery"})
-    finally:
-        system.close()
+def test_what_the_staged_funnel_serves_equals_reference(stores, tmp_path, query):
+    """The queries the port refused before its staged funnel and
+    ``index_retrieve`` (a filter, an offset, a robotics mode, filter-only)
+    and ``recall_with_diagnostics`` are served now, as the reference serves
+    them: the same answers and diagnostics, then equal stores."""
+    got = {}
+    for name in SYSTEMS:
+        shutil.copytree(stores / name, tmp_path / name)
+        system = open_system(name, tmp_path / name)
+        try:
+            with pinned(SYSTEMS[name][3], BASE + timedelta(days=2)):
+                plain = system.recall(query)
+                diag = system.recall_with_diagnostics({"query_text": "pottery"})
+                got[name] = ([(s.memory.id, s.score) for s in plain.memories],
+                             [(s.memory.id, s.score) for s in diag.memories], diag.diagnostics)
+                system.close()
+        finally:
+            SYSTEMS[name][3].pin_now(None)
+    assert_answers_equal(got["port"][:2], got["ref"][:2])
+    assert got["port"][0] and got["port"][2] == got["ref"][2]
+    assert_stores_equal(tmp_path / "port", tmp_path / "ref")
 
 
 def test_configured_gliner_raises(tmp_path, monkeypatch):
@@ -364,7 +376,8 @@ if __name__ == "__main__":
 def test_chip_smoke_system_phase_on_the_cpu(tmp_path):
     """The chip script's ``system`` phase at a small size on the CPU, over the
     engine phase's store made quiet: both sides open it without healing,
-    remember, recall and refit, and every comparison with the twin holds.
+    remember, recall (plain and staged), give feedback, run maintenance and
+    refit, and every comparison with the twin holds.
     It runs under the script's fixed string hash seed, in a process of its
     own, as the twin does."""
     import chip_smoke as cs
@@ -388,3 +401,12 @@ def test_chip_smoke_system_phase_on_the_cpu(tmp_path):
     assert rec["steps_calls"]["interference"] == 12 and rec["k1_launches_ingest"] == 0
     assert rec["lineage_edges_added"] > 0 and sum(rec["interference_events"].values()) > 0
     assert rec["twin"]["ingest_s"] > 0 and not rec["flush_refit"]
+    # the staged recalls, the feedback and the maintenance pass, held to the twin
+    assert rec["staged_checked"] == cs.STAGED_RECALLS
+    assert set(rec["staged_ms_by_shape"]) == set(cs.STAGED_SHAPES)
+    assert rec["staged_searches"]["pending"] == 0
+    assert rec["staged_searches"]["flushed"] >= cs.STAGED_RECALLS - 2
+    assert rec["reinforced"] == [2] * cs.REINFORCED
+    assert rec["maintenance"]["decayed"] > 0 and rec["maintenance"]["replay"]["replayed"] > 0
+    assert rec["stores_after_maintenance"]["float_rows"] == 0
+    assert rec["retrieve_all_s"] > 0 and rec["maintenance_s"] > 0
