@@ -27,6 +27,18 @@ Phases, each printing one JSON line:
    and B=256, held to the CPU run (and at B=256 also to the dense oracle on
    the card), 64 hits per leg, fresh hit rows per batch;
 5. batched ``spread_device`` on a random graph, held to the CPU run;
+5b. ``minilm`` (alone, before phase 6): MiniLM-L6 at its full published
+   width with seeded random weights as the system's embedder. It builds the
+   checkpoint (``model.npz`` and a seeded 30,522-entry ``vocab.txt``) and a
+   GLiNER checkpoint on the same trunk; times ``encode_tokens`` at (B, L) =
+   (256, 128), (256, 256), (8, 64), (1, 16) in f32 with int8 weights, f32
+   with f32 weights and bf16 against the f32 bound; holds 64 texts per mode
+   to the CPU forward; embeds 65,536 + 4,096 phase-6 texts at B=256 into an
+   f32 index (tokenization timed apart) and searches 256 MiniLM queries at
+   B=256 and B=8 through K1, held to brute force; runs a ``MemorySystem``'s
+   GLiNER ``NeuralNer`` over 256 texts against a CPU one; and runs ``cli
+   eval --suite smoke`` with the checkpoint, its dump held to the JAX
+   package's ``tests/torch_eval_dumps/smoke-minilm.json`` within 1e-3;
 6. ``engine``: the engine's device funnel (``DeviceRecallEngine``) over a
    store of 65,536 seeded conversation turns written through the port's own
    storage, embedded by its ``HashEmbedder`` and ingested into BM25 and the
@@ -808,10 +820,22 @@ def entity_vocab() -> tuple[list[str], dict[str, str], np.ndarray]:
     return names, labels, p / p.sum()
 
 
+@functools.cache
+def _entity_cdf() -> np.ndarray:
+    _, _, p = entity_vocab()
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    return cdf
+
+
 def draw_entities(r, count: int) -> list[str]:
-    """``count`` draws from the vocabulary's Zipf weights, repeats dropped."""
-    names, _, p = entity_vocab()
-    return list(dict.fromkeys(names[i] for i in r.choice(ENTITY_VOCAB, count, p=p)))
+    """``count`` draws from the vocabulary's Zipf weights, repeats dropped.
+    The draws of ``r.choice(ENTITY_VOCAB, count, p=p)`` (``count``
+    uniforms through the normalized cumulative weights), without that
+    call's checks of ``p``, which cost the most of a memory's making."""
+    names, _, _ = entity_vocab()
+    return list(dict.fromkeys(names[i] for i in _entity_cdf().searchsorted(
+        r.random(count), side="right")))
 
 
 def engine_now():
@@ -935,9 +959,8 @@ def ingest_bm25_store(root: str, n: int, seed: int) -> tuple[float, list]:
     process of its own beside the vector step: ``remember_lexical`` follows
     the context chain over the memories themselves, and the ``ctxprev`` /
     ``ctxtail`` pointers it writes come back for the caller to put into the
-    store. Ingest writes through the Python index, since the native
-    mirror's ``shodh_bm25_remove`` walks every posting list each time a
-    context fold re-inserts a document (ROADMAP.md section 3, R6). Returns
+    store. Ingest writes through the Python index alone; the caller opens
+    the native scorer on the persisted postings (``reopen_legs``). Returns
     (the seconds of the step, the pointer writes)."""
     from pathlib import Path
     from types import SimpleNamespace
@@ -1180,13 +1203,14 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
     rec = {"phase": "engine", "memories": n, "more": n_more, "more_in_place": n_in_place,
            "dim": DIM, "k": ENGINE_K, "hits_per_leg": ENGINE_HITS}
 
-    mems = make_memories(n, seed)
     # the BM25 and graph steps each in a process of their own, beside the
-    # vector step here; the ingest seconds of each leg are its own process's
+    # vector step here; the ingest seconds of each leg are its own process's,
+    # and each process makes its own copy of the memories while this one does
     spawn = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
         bm25_job = pool.submit(ingest_bm25_store, str(root), n, seed)
         graph_job = pool.submit(ingest_graph_store, str(root), n, seed)
+        mems = make_memories(n, seed)
         t0 = time.perf_counter()
         ingest(holder, mems, seed + 1)
         _sync(device)
@@ -1574,11 +1598,11 @@ def _phase_legs(root, holder, engines, device, n_calls, k, seed) -> dict:
 # Phase 8: MemorySystem over the engine phase's store
 # ---------------------------------------------------------------------------
 
-# Experiences remembered through MemorySystem.batch_remember. Each costs
-# 54-67 ms on the host at this store's size, most of it the native BM25
-# scorer's remove walk (R6), on the card's side and again on the twin's, which
-# runs after the card's timed ingest and recalls: 1,024 keeps the script inside
-# its time limit (4,096 took 222 s on the card's side alone)
+# Experiences remembered through MemorySystem.batch_remember, on the card's
+# side and again on the twin's, which runs after the card's timed ingest and
+# recalls: 1,024 keeps the script inside its time limit (4,096 took 222 s on
+# the card's side alone while the native scorer's remove walked every posting
+# list, R6)
 N_SYSTEM = 1024
 SYSTEM_CALL = 64  # experiences per batch_remember call: 8 ingest chunks of 8
 SYSTEM_SEED = 8191  # the session ids' seeded sequence
@@ -2355,6 +2379,340 @@ def phase_eval(work, device="cuda", suites=EVAL_SUITES) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase minilm: MiniLM-L6 on the card as the system's embedder, GLiNER on its trunk
+# ---------------------------------------------------------------------------
+
+MINILM_VOCAB = 30522  # CONFIG["vocab_size"] of models/minilm.py
+MINILM_SHAPES = ((256, 128), (256, 256), (8, 64), (1, 16))  # (B, L) timed
+# (name, compute dtype, int8 weights): the default first
+MINILM_MODES = (("f32_int8", "float32", True), ("f32", "float32", False),
+                ("bf16_int8", "bfloat16", True))
+MINILM_TOL = {"float32": 1e-5, "bfloat16": 1e-4}  # card vs CPU, max abs on unit vectors
+MINILM_CHECKED = 64  # texts held to the CPU per mode
+MINILM_MORE = 4096  # the rows embedded past the phase-6 store's 65,536
+MINILM_BATCH = 256
+MINILM_STAGED_B = 8  # the staged leg's search shape
+MINILM_QUERIES = 256
+GLINER_TEXTS = 256
+GLINER_RTOL = 1e-5
+EVAL_MINILM_DUMP = "tests/torch_eval_dumps/smoke-minilm.json"  # the JAX package's
+EVAL_MINILM_TOL = 1e-3
+_BERT_SPECIALS = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+                  + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])  # ids 0-103, as BERT's
+_SUFFIXES = ("es", "ed", "ing", "er", "ers", "est", "ly", "ion", "ions", "ment", "ness",
+             "al", "ity", "ive", "able", "ful", "less", "ous", "ize", "ized", "'s")
+
+
+@functools.cache
+def minilm_vocab() -> list[str]:
+    """A seeded 30,522-entry WordPiece vocabulary for the random MiniLM: BERT's
+    special tokens at their usual ids, single characters, the whole words of
+    the phase-6 generator and of ``tests/recall/corpora``, ``##`` pieces
+    (every letter and digit, common suffixes), then made-up fillers."""
+    import re
+    import string
+    from pathlib import Path
+
+    names, _, _ = entity_vocab()
+    words = set(WORDS) | {w.lower() for w in (*NAMES, *TAGS, *CITIES, *names)}
+    words |= {w for phrase in (*CAUSAL, *PIVOTS) for w in re.findall(r"[a-z0-9]+", phrase)}
+    corpora = Path(os.path.dirname(os.path.abspath(__file__))) / "tests" / "recall" / "corpora"
+    for path in sorted(corpora.glob("*.jsonl")):
+        for line in path.read_text(encoding="utf-8").splitlines():
+            if line.strip():
+                words.update(re.findall(r"[a-z0-9]+", json.loads(line)["content"].lower()))
+    chars = list(string.ascii_lowercase + string.digits + string.punctuation)
+    pieces = [f"##{c}" for c in string.ascii_lowercase + string.digits]
+    pieces += [f"##{x}" for x in _SUFFIXES]
+    vocab = _BERT_SPECIALS + chars + pieces
+    taken = set(vocab)
+    vocab += sorted(w for w in words if w not in taken)[:MINILM_VOCAB - len(vocab)]
+    taken = set(vocab)
+    r = np.random.default_rng(SEED)
+    while len(vocab) < MINILM_VOCAB:
+        w = "".join(r.choice(_SYLLABLES, 4))
+        if w not in taken:
+            taken.add(w)
+            vocab.append(w)
+    return vocab
+
+
+def write_minilm_checkpoint(dest, params: dict | None = None, seed: int = SEED):
+    """A full-width MiniLM checkpoint directory: ``model.npz`` in the flat
+    layout of ``flatten_params`` (f32 weights drawn by ``init_params(seed)``
+    unless ``params`` are given; int8 is applied at load) and the seeded
+    ``vocab.txt``. Returns the directory."""
+    from pathlib import Path
+
+    from shodh_tpu_torch.models.minilm import flatten_params, init_params
+
+    dest = Path(dest)
+    dest.mkdir(parents=True, exist_ok=True)
+    np.savez(dest / "model.npz", **flatten_params(params or init_params(seed)))
+    (dest / "vocab.txt").write_text("\n".join(minilm_vocab()) + "\n", encoding="utf-8")
+    return dest
+
+
+def write_gliner_checkpoint(dest, minilm_dir, embedder, seed: int = SEED):
+    """A GLiNER checkpoint on the MiniLM checkpoint's trunk (int8, as the
+    embedder runs it by default): ``init_span_head(seed)``, label embeddings
+    of the schema's fine labels from ``embedder``, and the same vocabulary."""
+    import shutil
+    from pathlib import Path
+
+    from shodh_tpu_torch.models.gliner import build_label_embeddings, init_span_head, save_gliner
+    from shodh_tpu_torch.models.minilm import CONFIG, load_checkpoint, quantize_params_int8
+    from shodh_tpu_torch.nlp.entity_type import fine_labels_in_schema_order
+
+    dest = Path(dest)
+    tower = quantize_params_int8(load_checkpoint(minilm_dir))
+    labels = build_label_embeddings(fine_labels_in_schema_order(), embedder)
+    save_gliner(dest, tower, init_span_head(seed, CONFIG["hidden"]), labels)
+    shutil.copy(Path(minilm_dir) / "vocab.txt", dest / "vocab.txt")
+    return dest
+
+
+def memory_texts(n: int, seed: int, first: int = 0, span_s: int = TWO_YEARS_S) -> list[str]:
+    """The texts of ``make_memories(n, seed, first, span_s=span_s)``: the same
+    draws, without building the memories."""
+    r = np.random.default_rng(seed)
+    lengths = r.integers(5, 25, n)
+    speaker, causal = (r.random((6, n)) < [[0.25], [1 / 6], [0.1], [0.05], [0.15], [0.1]])[:2]
+    r.random((3, n))
+    r.integers(0, span_s, n)
+    out = []
+    for i in range(n):
+        words = list(r.choice(WORDS, lengths[i]))
+        if causal[i]:
+            words.insert(len(words) // 2, CAUSAL[i % len(CAUSAL)])
+        text = " ".join(words) + f" {first + i}"
+        if speaker[i]:
+            text = f"{NAMES[(first + i) % len(NAMES)]}: {text}"
+        out.append(text)
+    return out
+
+
+def same_topk_f64(name: str, got, queries: np.ndarray, corpus64, tol: float = 1e-6) -> int:
+    """A search's top-k held to brute force in f64 on the corpus's device:
+    the row at each position has the exact score of that position in the
+    f64 ranking, up to ``tol`` (so rows may trade places only where their
+    exact scores are within ``tol``, a tie at f32 resolution), and each
+    value agrees with its row's exact score to rtol 1e-5. Returns the count
+    of positions whose row differs from the f64 ranking's."""
+    import torch
+
+    vals, rows = got
+    k = rows.shape[1]
+    s = torch.tensor(queries, device=corpus64.device, dtype=torch.float64) @ corpus64.T
+    want = torch.topk(s, k, dim=1).values.cpu().numpy()
+    order = torch.topk(s, k, dim=1).indices.cpu().numpy()
+    exact = torch.gather(s, 1, torch.tensor(rows, device=s.device)).cpu().numpy()
+    if (rows < 0).any() or np.abs(exact - want).max() > tol:
+        raise AssertionError(f"{name}: the top-{k} rows differ from brute force in f64")
+    np.testing.assert_allclose(vals, exact, rtol=1e-5, atol=1e-7, err_msg=name)
+    return int((rows != order).sum())
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def dump_differences(got: dict, want: dict, tol: float) -> list:
+    """Every numeric leaf of two eval dumps that differs, as (path, got,
+    want); raises where the trees differ in shape or text, or a number by more
+    than ``tol``."""
+    a, b = dict(_leaves(got)), dict(_leaves(want))
+    if a.keys() != b.keys():
+        raise AssertionError(f"eval dump keys differ: {sorted(a.keys() ^ b.keys())[:10]}")
+    diffs = []
+    for path in sorted(a):
+        x, y = a[path], b[path]
+        if isinstance(x, (int, float)) and isinstance(y, (int, float)):
+            if x != y:
+                diffs.append((path, x, y))
+                if abs(x - y) > tol:
+                    raise AssertionError(f"eval dump {path}: {x} against {y}, beyond {tol}")
+        elif x != y:
+            raise AssertionError(f"eval dump {path}: {x!r} against {y!r}")
+    return diffs
+
+
+def _minilm_timings(embedders: dict, device, seed: int) -> dict:
+    """Device ms (CUDA events) and host ms (numpy in, numpy out) per
+    ``encode_tokens`` call at each shape and mode, tokens/s, peak memory and
+    the bound: the forward's FLOPs over the card's f32 peak (TF32 is off)."""
+    import torch
+
+    from shodh_tpu_torch.models.minilm import forward_flops
+
+    r = np.random.default_rng(seed)
+    out = {}
+    for b, L in MINILM_SHAPES:
+        ids = r.integers(999, MINILM_VOCAB, (b, L)).astype(np.int32)
+        mask = np.ones((b, L), np.float32)
+        ids_t, mask_t = torch.tensor(ids, device=device), torch.tensor(mask, device=device)
+        bound, by = bound_ms(0.0, forward_flops(b, L), F32_FLOPS)
+        iters = 5 if b * L >= 1 << 15 else 20
+        for name, emb in embedders.items():
+            model, dtype = emb.model, emb.compute_dtype
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: model.encode_tokens(ids_t, mask_t, dtype), iters)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                emb.encode_padded(ids, mask).cpu().numpy()
+            host_ms = (time.perf_counter() - t0) / iters * 1e3
+            out[f"{name}_b{b}_l{L}"] = {
+                "ms": ms, "host_ms": host_ms, "tokens_per_s": b * L / ms * 1e3,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                "bound_ms": bound, "bound_by": by, "bound_share": bound / ms}
+    return out
+
+
+def phase_minilm(work, device="cuda", n=ENGINE_MEMORIES, n_more=MINILM_MORE,
+                 n_checked=MINILM_CHECKED, n_queries=MINILM_QUERIES, n_gliner=GLINER_TEXTS,
+                 seed=SEED, expect_k1=True, timings=True) -> dict:
+    """MiniLM-L6 at its full published width with seeded random weights: (a)
+    the checkpoints; (b) encode times at ``MINILM_SHAPES`` in each mode; (c)
+    ``n_checked`` texts per mode held to the port's CPU forward; (d) ``n`` +
+    ``n_more`` phase-6 texts embedded at B=256 into an f32 index, then
+    ``n_queries`` MiniLM queries searched at B=256 and at the staged leg's
+    B=8 (K1 past 65,536 rows), each held to brute force on the device; (e)
+    the GLiNER typer of a ``MemorySystem``'s ``NeuralNer`` over ``n_gliner``
+    texts, held to a CPU one; (f) ``cli eval --suite smoke`` with the MiniLM
+    checkpoint on ``device``, its dump held to the JAX package's committed
+    one within ``EVAL_MINILM_TOL``. Any mismatch raises."""
+    import copy
+    from pathlib import Path
+
+    import torch
+
+    from shodh_tpu_torch.engine.memory_system import MemorySystem
+    from shodh_tpu_torch.index.device_index import DeviceVectorIndex
+    from shodh_tpu_torch.models.embedder import MiniLMEmbedder
+    from shodh_tpu_torch.nlp.ner import NeuralNer
+
+    work = Path(work)
+    rec = {"phase": "minilm", "rows": n + n_more, "batch": MINILM_BATCH}
+    t_phase = time.perf_counter()
+
+    # (a) checkpoints
+    t0 = time.perf_counter()
+    ckpt = write_minilm_checkpoint(work / "minilm")
+    emb = {"f32_int8": MiniLMEmbedder(ckpt, device=device),
+           "f32": MiniLMEmbedder(ckpt, int8_weights=False, device=device)}
+    emb["bf16_int8"] = copy.copy(emb["f32_int8"])
+    emb["bf16_int8"].compute_dtype = "bfloat16"
+    gdir = write_gliner_checkpoint(work / "gliner", ckpt, emb["f32_int8"])
+    rec["checkpoint_s"] = time.perf_counter() - t0
+
+    # (b) encode times
+    if timings:
+        rec["encode"] = _minilm_timings(emb, device, seed + 11)
+
+    # (c) the card against the CPU forward
+    texts = memory_texts(n, seed)
+    cpu = {"f32_int8": MiniLMEmbedder(ckpt, device="cpu"),
+           "f32": MiniLMEmbedder(ckpt, int8_weights=False, device="cpu")}
+    cpu["bf16_int8"] = copy.copy(cpu["f32_int8"])
+    cpu["bf16_int8"].compute_dtype = "bfloat16"
+    rec["vs_cpu_max_abs"] = {}
+    for name, e in emb.items():
+        got, want = e.encode_batch(texts[:n_checked]), cpu[name].encode_batch(texts[:n_checked])
+        err = float(np.abs(got - want).max())
+        rec["vs_cpu_max_abs"][name] = err
+        if not err <= MINILM_TOL[e.compute_dtype]:
+            raise AssertionError(f"minilm {name}: card vs CPU max abs {err}")
+
+    # (d) MiniLM over an f32 index
+    texts += memory_texts(n_more, seed + 3 + n, first=n, span_s=86400)
+    e = emb["f32_int8"]
+    t0 = time.perf_counter()
+    padded = [e.pad_batch(texts[lo:lo + MINILM_BATCH]) for lo in range(0, len(texts), MINILM_BATCH)]
+    tok_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [e.encode_padded(ids, mask)[:len(texts[lo:lo + MINILM_BATCH])]
+            for lo, (ids, mask) in zip(range(0, len(texts), MINILM_BATCH), padded)]
+    vecs = torch.cat(outs).cpu().numpy()
+    embed_s = time.perf_counter() - t0
+    index = DeviceVectorIndex(dim=e.dimension, device=device)
+    t0 = time.perf_counter()
+    index.add(vecs)
+    index.flush()
+    index._device_arrays()
+    _sync(device)
+    index_s = time.perf_counter() - t0
+    rec["ingest"] = {"tokenize_s": tok_s, "embed_s": embed_s, "index_s": index_s,
+                     "memories_per_s": len(texts) / (tok_s + embed_s + index_s),
+                     "embed_memories_per_s": len(texts) / embed_s,
+                     "tokens": int(sum(m.sum() for _, m in padded)),
+                     "padded_tokens": int(sum(m.size for _, m in padded))}
+    queries = e.encode_batch(query_texts(n_queries, seed + 7))
+    corpus = torch.tensor(vecs, device=device, dtype=torch.float64)
+    searches = [(f"b{len(queries)}", queries)] + [
+        (f"b{MINILM_STAGED_B}_{i}", queries[lo:lo + MINILM_STAGED_B])
+        for i, lo in enumerate(range(0, 64, MINILM_STAGED_B))]
+    reset_launches()
+    results = [(name, q, index.search(q, K)) for name, q in searches]
+    rec["launches"] = read_launches()
+    rec["near_ties"] = sum(same_topk_f64(f"minilm search {name}", got, q, corpus)
+                           for name, q, got in results)
+    if expect_k1 and rec["launches"]["groupmax"] < len(searches):
+        raise AssertionError(f"minilm: K1 launched {rec['launches']['groupmax']} times "
+                             f"for {len(searches)} searches past 65,536 rows")
+    rec["searches"] = len(searches)
+    if timings:  # K1 alone at the path's two shapes, with its bound and library time
+        rec["k1_b256"] = k1_ingest_shape(index, queries)
+        rec["k1_b8"] = k1_ingest_shape(index, queries[:MINILM_STAGED_B])
+    del index, corpus
+
+    # (e) GLiNER through a MemorySystem's NeuralNer, held to a CPU one
+    sample = texts[:n_gliner]
+    with env(SHODH_GLINER_DIR=str(gdir), SHODH_MINILM_DIR=None):
+        system = MemorySystem(work / "gliner_system", device=device)
+        try:
+            system.ner.extract(sample[0])  # warm
+            t0 = time.perf_counter()
+            got = [system.ner.extract(t) for t in sample]
+            _sync(device)
+            rec["gliner_ms_per_text"] = (time.perf_counter() - t0) / len(sample) * 1e3
+        finally:
+            system.close()
+        cpu_ner = NeuralNer(device="cpu")
+        want = [cpu_ner.extract(t) for t in sample]
+    spans = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if [(m.text, m.label, m.fine, m.start) for m in g] != [(m.text, m.label, m.fine, m.start)
+                                                               for m in w]:
+            raise AssertionError(f"gliner: text {i} spans differ from the CPU typer's")
+        np.testing.assert_allclose([m.confidence for m in g], [m.confidence for m in w],
+                                   rtol=GLINER_RTOL, err_msg=f"gliner text {i}")
+        spans += sum(bool(m.fine) for m in g)
+    rec["gliner_spans"] = spans
+    if not spans:
+        raise AssertionError("gliner: the typer produced no span")
+
+    # (f) the smoke eval with MiniLM as the system's embedder
+    t0 = time.perf_counter()
+    dump = work / "smoke-minilm.json"
+    with env(SHODH_MINILM_DIR=str(ckpt)):
+        report = _eval_report(_eval_process("smoke", device, dump), f"smoke-minilm on {device}")
+    rec["eval_s"] = time.perf_counter() - t0
+    root = Path(os.path.dirname(os.path.abspath(__file__)))
+    diffs = dump_differences(json.loads(dump.read_text()),
+                             json.loads((root / EVAL_MINILM_DUMP).read_text()), EVAL_MINILM_TOL)
+    rec["eval_differences"] = diffs
+    rec["eval_embedder"] = report["embedder"]
+    rec["eval_full"] = {m: report["layers"]["full"][m]
+                        for m in ("ndcg@10", "recall@10", "mrr", "p@1", "map")}
+    rec["minilm_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2428,6 +2786,13 @@ def main() -> int:
 
     emit(phase_spread(100_000, 1 << 20, 3, SEED + 5))
 
+    # MiniLM as the system's embedder and GLiNER on its trunk, alone: its
+    # encode times and the eval's latencies are clocks
+    with tempfile.TemporaryDirectory() as mw:
+        rec_minilm = phase_minilm(mw)
+    emit({**rec_minilm, "card": card})
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
         rec_engine, holder, engines = phase_engine(tmp)
@@ -2464,6 +2829,11 @@ def main() -> int:
          "int8_bound_ms": k1["k1_int8_bound_ms"], "int8_library_ms": k1["k1_int8_library_ms"],
          "b16_ms": k1["k1_b16_ms"], "b16_bound_ms": k1["k1_b16_bound_ms"],
          "b16_library_ms": k1["k1_b16_library_ms"],
+         "minilm_launches": rec_minilm["launches"]["groupmax"],
+         "minilm_b256_ms": rec_minilm["k1_b256"]["ms"],
+         "minilm_b256_bound_ms": rec_minilm["k1_b256"]["bound_ms"],
+         "minilm_b256_library_ms": rec_minilm["k1_b256"]["library_ms"],
+         "minilm_b256_plain_ms": rec_minilm["k1_b256"]["plain_ms"],
          "system_launches": rec_system["launches"]["groupmax"],
          "staged_launches": rec_system["staged_launches"]["groupmax"],
          "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],

@@ -139,7 +139,7 @@ class MemorySystem:
         self.data_dir = Path(data_dir)
         self.data_dir.mkdir(parents=True, exist_ok=True)
         self.storage = MemoryStorage(self.data_dir)
-        self.embedder = embedder or default_embedder()
+        self.embedder = embedder or default_embedder(device=self.device)
         self._device_funnel: Optional[DeviceRecallEngine] = None  # lazy
         self._ab: Optional[ABTestManager] = None  # lazy (scoring-weight experiments)
         index_path = self.data_dir / "index" / "text"
@@ -197,7 +197,7 @@ class MemorySystem:
     def _init_subsystems(self) -> None:
         """Attach the subsystems. Split out so tests can build bare cores."""
         self.query_parser = QueryParser()
-        self.ner = NeuralNer()
+        self.ner = NeuralNer(device=self.device)
         self.gazetteer = Gazetteer()
         self.bm25 = BM25Index(self.data_dir / "bm25")
         self.graph = GraphMemory(self.data_dir / "graph", embedder=self.embedder,

@@ -12,25 +12,18 @@ package reads it too. ``SHODH_SEM_WEIGHT>0`` blends the model into the
 embedder and re-embeds the store (``system.rebuild_index``);
 ``SHODH_DOC_EXPANSION_WEIGHT>0`` adds each BM25 document's neighbour terms.
 
-The adjacency metric (``SHODH_ADJ_METRIC_ALPHA>0``) is not ported: where the
-reference would fit or load it, ``adapt_semantics`` and
-``reload_semantic_model`` raise ``NotImplementedError``.
+``SHODH_ADJ_METRIC_ALPHA>0`` fits the adjacency metric
+(``models/adjacency_metric.py``) on the same texts in the raw hash space,
+saves it under ``data_dir/adjacency_metric``, warps the embedder with it and
+re-embeds the store; ``reload_semantic_model`` re-attaches the saved one.
 """
 
 from __future__ import annotations
 
 from shodh_tpu_torch import constants as C
+from shodh_tpu_torch.models.adjacency_metric import AdjacencyMetric, adjacency_pairs
 from shodh_tpu_torch.models.hash_embedder import content_stems
 from shodh_tpu_torch.models.semantic_model import CorpusSemanticModel
-
-_NEEDS_ADJ = "ROADMAP.md section 1, item 6 (the adjacency metric, models/adjacency_metric.py)"
-
-
-def _refuse_adjacency(value: float) -> None:
-    raise NotImplementedError(
-        f"SHODH_ADJ_METRIC_ALPHA={value:g} warps the store's vectors with the adjacency "
-        f"metric, which waits for {_NEEDS_ADJ}"
-    )
 
 
 def base_embedder(system):
@@ -70,17 +63,38 @@ def adapt_semantics(system, force: bool = False) -> bool:
     if prev is not None and prev.corpus_fingerprint == model.corpus_fingerprint:
         prev.fitted_n = n  # same corpus set: nothing to re-embed
         return False
-    adj_alpha = C.env_float("SHODH_ADJ_METRIC_ALPHA", 0.0)
-    if adj_alpha > 0.0:
-        _refuse_adjacency(adj_alpha)
     weight = C.semantic_blend_weight()
     base.set_semantic_model(model, weight=weight)
     if hasattr(system.embedder, "refresh_inner"):
         system.embedder.refresh_inner()
     model.save(system.data_dir / "semantic_model")
-    if weight > 0.0:
-        # the blend changes stored vectors: re-embed. Otherwise the model
-        # only drives BM25 expansion and the vectors are untouched.
+    need_rebuild = weight > 0.0
+    # Adjacency-contrastive metric: a learned warp over the hash space from
+    # same-conversation turn adjacency.
+    adj_alpha = C.env_float("SHODH_ADJ_METRIC_ALPHA", 0.0)
+    if adj_alpha > 0.0 and hasattr(base, "set_adjacency_metric"):
+        prev_metric = base._adj_metric
+        base.set_adjacency_metric(None, 0.0)  # fit in the raw space
+        raw_vecs = base.encode_batch(texts)
+        metric = AdjacencyMetric.fit(
+            raw_vecs,
+            adjacency_pairs(mems),
+            epochs=int(C.env_float("SHODH_ADJ_EPOCHS", 5)),
+            identity_reg=C.env_float("SHODH_ADJ_REG", 0.02),
+        )
+        if metric is not None:
+            metric.save(system.data_dir / "adjacency_metric")
+            base.set_adjacency_metric(metric, adj_alpha)
+            need_rebuild = True
+        elif prev_metric is not None:
+            # refit sample too small: keep the attached metric, whose space
+            # the stored vectors are in
+            base.set_adjacency_metric(prev_metric, adj_alpha)
+        if hasattr(system.embedder, "refresh_inner"):
+            system.embedder.refresh_inner()
+    if need_rebuild:
+        # the blend or the warp changes stored vectors: re-embed. Otherwise
+        # the model only drives BM25 expansion and the vectors are untouched.
         system.rebuild_index()
     doc_w = C.env_float("SHODH_DOC_EXPANSION_WEIGHT", 0.0)
     if doc_w > 0.0 and system.bm25 is not None:
@@ -141,5 +155,9 @@ def reload_semantic_model(system) -> None:
         if hasattr(system.embedder, "refresh_inner"):
             system.embedder.refresh_inner()
     adj_alpha = C.env_float("SHODH_ADJ_METRIC_ALPHA", 0.0)
-    if adj_alpha > 0.0:
-        _refuse_adjacency(adj_alpha)
+    if adj_alpha > 0.0 and hasattr(base, "set_adjacency_metric"):
+        metric = AdjacencyMetric.load(system.data_dir / "adjacency_metric")
+        if metric is not None:
+            base.set_adjacency_metric(metric, adj_alpha)
+            if hasattr(system.embedder, "refresh_inner"):
+                system.embedder.refresh_inner()

@@ -178,7 +178,9 @@ class GraphMemory:
         self._vec_ids: list[str] = []  # row i of _name_vecs is entity _vec_ids[i]
         self._vec_id_set: set[str] = set()
         self._vecs_entity_count = -1  # len(entities) at last missing-row scan
-        self._name_vecs = None  # np.ndarray (N, D) L2-normalized | None
+        # np.ndarray (capacity, D) | None: a growable buffer whose first
+        # len(_vec_ids) rows are the L2-normalized name vectors
+        self._name_vecs = None
         self._load()
 
     # -- persistence ----------------------------------------------------------
@@ -319,28 +321,35 @@ class GraphMemory:
         if len(self.entities) != self._vecs_entity_count:
             missing = sorted(eid for eid in self.entities if eid not in self._vec_id_set)
             if missing:
-                import numpy as np
-
+                self._vec_rows_put(self._encode_names(missing))
                 self._vec_ids.extend(missing)
                 self._vec_id_set.update(missing)
-                new = self._encode_names(missing)
-                self._name_vecs = (
-                    np.concatenate([self._name_vecs, new])
-                    if self._name_vecs is not None
-                    else new
-                )
             self._vecs_entity_count = len(self.entities)
         return self._name_vecs is not None and len(self._vec_ids) > 0
+
+    def _vec_rows_put(self, new) -> None:
+        """Write ``new`` name vectors after the live rows, doubling the
+        buffer when it is full (amortized O(1) a row: a concatenation per
+        new entity made ingest quadratic in the entities)."""
+        import numpy as np
+
+        n = len(self._vec_ids)
+        need = n + len(new)
+        if self._name_vecs is None or need > len(self._name_vecs):
+            cap = max(need, 2 * (0 if self._name_vecs is None else len(self._name_vecs)))
+            buf = np.empty((cap, new.shape[1]), np.float32)
+            if n:
+                buf[:n] = self._name_vecs[:n]
+            self._name_vecs = buf
+        self._name_vecs[n:need] = new
 
     def _vec_append(self, eid: str) -> None:
         if self.embedder is None or self._name_vecs is None:
             return  # matrix not built yet; lazy build will pick it up
-        import numpy as np
-
+        self._vec_rows_put(self._encode_names([eid]))
         self._vec_ids.append(eid)
         self._vec_id_set.add(eid)
         self._vecs_entity_count = len(self.entities)
-        self._name_vecs = np.concatenate([self._name_vecs, self._encode_names([eid])])
 
     def _embedding_best(self, canon: str, threshold: float, label: Optional[str] = None):
         """Highest-cosine entity for a name, or None below threshold.
@@ -350,9 +359,13 @@ class GraphMemory:
         import numpy as np
 
         q = self._encode_names([canon])[0]
-        sims = self._name_vecs @ q
+        sims = self._name_vecs[: len(self._vec_ids)] @ q
         best_id, best_sim = None, threshold
-        for i in np.argsort(-sims):
+        # the answer is the highest cosine (ties to the smallest id) among
+        # rows at or above the threshold, whatever order they are visited
+        # in, so only those rows are sorted
+        above = np.flatnonzero(sims >= threshold)
+        for i in above[np.argsort(-sims[above])]:
             s = float(sims[i])
             if s < threshold:
                 break

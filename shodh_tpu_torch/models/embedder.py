@@ -1,5 +1,5 @@
-"""Embedder protocol, caching, circuit breaker and the default choice
-(port of ``shodh_tpu/models/embedder.py``).
+"""Embedder protocol, MiniLM wrapper, caching, circuit breaker and the
+default choice (port of ``shodh_tpu/models/embedder.py``).
 
 Mirrors the reference's ``Embedder`` trait (``src/embeddings/mod.rs:51-69``):
 ``encode`` (document), ``encode_query`` (asymmetric prefix hook),
@@ -9,9 +9,8 @@ from ``circuit_breaker.rs``.
 
 ``default_embedder`` picks as the JAX package does: a MiniLM checkpoint
 directory if one is configured or present (``SHODH_MINILM_DIR``,
-``~/.cache/shodh-tpu/minilm``), else the offline hash embedder. This package
-has no MiniLM encoder yet, so where the JAX package would load one,
-``default_embedder`` raises rather than quietly embed with another model.
+``~/.cache/shodh-tpu/minilm``), which runs on the card unless the caller
+asks for the CPU; else the offline hash embedder.
 """
 
 from __future__ import annotations
@@ -24,10 +23,13 @@ from typing import Protocol, runtime_checkable
 
 import numpy as np
 
-from shodh_tpu_torch.constants import EMBED_CACHE_MAX
+from shodh_tpu_torch.constants import EMBED_CACHE_MAX, MAX_TOKENS
 from shodh_tpu_torch.utils.hashing import cache_key
 
 ENV_MINILM_DIR = "SHODH_MINILM_DIR"
+
+_BATCH_BUCKETS = (1, 8, 32, 128, 256)
+_LEN_BUCKETS = (16, 32, 64, 128, 256)
 
 
 def _default_minilm_dir() -> Path:
@@ -44,6 +46,82 @@ class Embedder(Protocol):
     def encode_query(self, text: str) -> np.ndarray: ...
 
     def encode_batch(self, texts: list[str]) -> np.ndarray: ...
+
+
+class MiniLMEmbedder:
+    """MiniLM-L6-v2 (models/minilm.py) on a torch device with the JAX
+    package's bucketed batch shapes: (batch, length) pads to a few static
+    shapes, so both packages run the same shapes on the same rows."""
+
+    # the model's identity in cache keys and eval dumps, the JAX package's
+    name = "minilm-l6-v2-jax"
+
+    def __init__(
+        self,
+        ckpt_dir: str | Path,
+        compute_dtype: str = "float32",
+        int8_weights: bool | None = None,
+        device=None,
+    ):
+        from shodh_tpu_torch.device import resolve_device
+        from shodh_tpu_torch.models.minilm import (
+            CONFIG,
+            MiniLM,
+            load_checkpoint,
+            quantize_params_int8,
+        )
+        from shodh_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+        self.device = resolve_device(device)
+        ckpt_dir = Path(ckpt_dir)
+        params = load_checkpoint(ckpt_dir)
+        if int8_weights is None:
+            int8_weights = os.environ.get("SHODH_MINILM_INT8", "1") != "0"
+        if int8_weights:
+            # reference default: the INT8-quantized model (minilm.rs:172-186)
+            params = quantize_params_int8(params)
+        self.params = params
+        self.model = MiniLM.from_params(params, self.device)
+        self.tokenizer = WordPieceTokenizer.from_vocab_file(ckpt_dir / "vocab.txt")
+        self.dimension = int(CONFIG["hidden"])
+        self.compute_dtype = compute_dtype
+
+    @staticmethod
+    def _bucket(n: int, buckets) -> int:
+        for b in buckets:
+            if n <= b:
+                return b
+        return buckets[-1]
+
+    def pad_batch(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        """The bucketed (ids, mask) the encoder runs for ``texts``."""
+        ids, mask = self.tokenizer.encode_batch(texts, max_len=MAX_TOKENS)
+        b, L = ids.shape
+        bp = self._bucket(b, _BATCH_BUCKETS)
+        lp = self._bucket(L, _LEN_BUCKETS)
+        ids_p = np.zeros((bp, lp), np.int32)
+        mask_p = np.zeros((bp, lp), np.float32)
+        ids_p[:b, :L] = ids[:, :lp]
+        mask_p[:b, :L] = mask[:, :lp]
+        return ids_p, mask_p
+
+    def encode_padded(self, ids_p: np.ndarray, mask_p: np.ndarray):
+        """The encoder's (bp, H) output on the device for one padded batch."""
+        return self.model.encode_tokens(ids_p, mask_p, compute_dtype=self.compute_dtype)
+
+    def encode_batch(self, texts: list[str]) -> np.ndarray:
+        if not texts:
+            return np.zeros((0, self.dimension), np.float32)
+        out = self.encode_padded(*self.pad_batch(texts))
+        return out[: len(texts)].cpu().numpy()
+
+    def encode(self, text: str) -> np.ndarray:
+        return self.encode_batch([text])[0]
+
+    def encode_query(self, text: str) -> np.ndarray:
+        # all-MiniLM-L6-v2 is symmetric (no query prefix); prefix-style
+        # models (e5/bge) would add their instruction here (minilm.rs:969).
+        return self.encode(text)
 
 
 class CachedEmbedder:
@@ -177,18 +255,15 @@ class CircuitBreakerEmbedder:
         return self._call(self.inner.encode_batch, texts)
 
 
-def default_embedder(cached: bool = True) -> Embedder:
-    """The offline hash embedder, unless a MiniLM checkpoint is configured
-    or present; that case raises, since this package has no MiniLM port."""
+def default_embedder(cached: bool = True, device=None) -> Embedder:
+    """MiniLM on ``device`` (the card unless the caller names the CPU) if a
+    checkpoint is configured or present, else the offline hash embedder."""
     default_dir = _default_minilm_dir()
     ckpt = os.environ.get(ENV_MINILM_DIR) or (str(default_dir) if default_dir.exists() else None)
     if ckpt and Path(ckpt).exists():
-        raise NotImplementedError(
-            f"a MiniLM checkpoint is configured ({ckpt}), but shodh_tpu_torch has no "
-            "MiniLMEmbedder yet; unset SHODH_MINILM_DIR (or move the checkpoint) to "
-            "use the hash embedder"
-        )
-    from shodh_tpu_torch.models.hash_embedder import HashEmbedder
+        inner: Embedder = MiniLMEmbedder(ckpt, device=device)
+    else:
+        from shodh_tpu_torch.models.hash_embedder import HashEmbedder
 
-    inner = HashEmbedder()
+        inner = HashEmbedder()
     return CachedEmbedder(inner) if cached else inner

@@ -18,7 +18,8 @@ Optionally blends a corpus-adaptive distributional component
 ``normalize(hash_vec + weight * Q @ sem_vec)`` with Q's columns orthonormal
 (seeded QR); at weight 0 (the default) the model is only carried for the
 BM25 plan's semantic expansion and the output is the pure hash embedder's.
-The reference's adjacency warp (``set_adjacency_metric``) is not ported.
+A fitted adjacency warp (``models/adjacency_metric.py``,
+``set_adjacency_metric``) projects both queries and documents last.
 """
 
 from __future__ import annotations
@@ -110,6 +111,20 @@ class HashEmbedder:
         self._sem_model = None
         self._sem_weight = 0.0
         self._sem_basis: np.ndarray | None = None  # (dim, sem_dim) orthonormal cols
+        self._adj_metric = None  # models/adjacency_metric.py learned warp
+        self._adj_alpha = 0.0
+
+    def set_adjacency_metric(self, metric, alpha: float) -> None:
+        """Attach (or detach with ``metric=None``) a fitted adjacency warp.
+        Changes ``name`` so SHA-keyed embedding caches miss stale entries."""
+        if metric is None or alpha <= 0.0:
+            self._adj_metric = None
+            self._adj_alpha = 0.0
+        else:
+            self._adj_metric = metric
+            self._adj_alpha = float(alpha)
+        base = self.name.split("+adj")[0]
+        self.name = base if self._adj_metric is None else f"{base}+adj{alpha:g}n{metric.fitted_n}"
 
     def set_semantic_model(self, model, weight: float) -> None:
         """Attach (or detach with ``model=None``) a fitted semantic model.
@@ -156,4 +171,10 @@ class HashEmbedder:
             out = out + self._sem_weight * (sem @ self._sem_basis.T)
             norms = np.linalg.norm(out, axis=1, keepdims=True)
             out = (out / np.maximum(norms, 1e-12)).astype(np.float32)
+        if self._adj_metric is not None and self._adj_alpha > 0.0:
+            # learned adjacency warp: queries and documents both pass
+            # through it, so the space stays symmetric
+            out = np.atleast_2d(
+                self._adj_metric.project(out, self._adj_alpha)
+            ).astype(np.float32)
         return out

@@ -16,6 +16,7 @@ position + frequency.
 from __future__ import annotations
 
 import re
+import zipfile
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -185,13 +186,14 @@ def maybe_load_distilled(ner: "NeuralNer") -> bool:
     return True
 
 
-def maybe_load_gliner(ner: "NeuralNer") -> bool:
-    """The GLiNER-shape span typer, where a checkpoint is configured.
+def maybe_load_gliner(ner: "NeuralNer", device=None) -> bool:
+    """Plug the GLiNER-shape span typer when a checkpoint is configured.
 
-    ``SHODH_GLINER_DIR`` holding ``model.npz`` configures it. The port has no
-    GLiNER runtime yet (``models/gliner.py``, ROADMAP.md section 1, item 9),
-    so a configured checkpoint raises ``NotImplementedError`` where the JAX
-    package would load it; without one this returns False.
+    ``SHODH_GLINER_DIR`` must contain model.npz + label_embeds.npy +
+    vocab.txt (models/gliner.py layout); the typer runs on ``device`` (the
+    card unless the caller names the CPU). Returns True when activated. An
+    error of the typer at extraction, a device error included, reaches the
+    caller (the JAX package degrades to the rules there).
     """
     import os
     from pathlib import Path
@@ -199,36 +201,51 @@ def maybe_load_gliner(ner: "NeuralNer") -> bool:
     d = os.environ.get("SHODH_GLINER_DIR", "")
     if not d or not (Path(d) / "model.npz").exists():
         return False
-    raise NotImplementedError(
-        f"SHODH_GLINER_DIR={d} configures the GLiNER typer, which waits for "
-        "ROADMAP.md section 1, item 9 (models/gliner.py)"
-    )
+    from shodh_tpu_torch.models.gliner import load_typer
+
+    typer = load_typer(d, device=device)
+
+    def fn(text: str) -> list[EntityMention]:
+        return [
+            EntityMention(text=s.text, label=s.coarse, confidence=s.score,
+                          start=s.start, fine=s.fine_label)
+            for s in typer.extract(text)
+        ]
+
+    ner.set_model(fn, degrade=False)
+    return True
 
 
 class NeuralNer:
     """Production facade: neural model when plugged, rule fallback always.
 
-    ``extract`` never returns empty on model error (ner.rs contract) — a
-    model failure logs once and degrades to rules.
+    ``extract`` never returns empty (ner.rs contract): where the model finds
+    nothing, the rules answer. A failure of the distilled tagger degrades to
+    the rules once and for all; a failure of the GLiNER typer reaches the
+    caller.
     """
 
-    def __init__(self):
+    def __init__(self, device=None):
         self._rules = RuleBasedExtractor()
         self._model: Optional[Callable[[str], list[EntityMention]]] = None
         self._model_failed = False
-        # GLiNER checkpoint wins when configured (the port refuses it); the
+        self._degrade = True
+        # a corrupt artifact (npz, gzip, json) must never take down the
+        # engine; a device error or a failed build of the native tagger
+        # still raises. GLiNER checkpoint wins when configured; the
         # distilled teacher-output tagger is the shipping default behind it.
-        if not maybe_load_gliner(self):
-            try:
+        try:
+            if not maybe_load_gliner(self, device=device):
                 maybe_load_distilled(self)
-            except (OSError, ValueError, EOFError):
-                # a corrupt artifact (gzip, json) must never take down the
-                # engine; a failed build of the native tagger still raises
-                pass
+        except (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile):
+            pass
 
-    def set_model(self, fn: Callable[[str], list[EntityMention]]) -> None:
+    def set_model(self, fn: Callable[[str], list[EntityMention]], degrade: bool = True) -> None:
+        """Plug ``fn``; with ``degrade`` its first error switches to the rules
+        for good, without it the error reaches the caller."""
         self._model = fn
         self._model_failed = False
+        self._degrade = degrade
 
     @property
     def degraded(self) -> bool:
@@ -238,10 +255,13 @@ class NeuralNer:
         if self._model is not None and not self._model_failed:
             try:
                 out = self._model(text)
+            except Exception:
+                if not self._degrade:
+                    raise
+                self._model_failed = True  # one-shot degradation (ner.rs:10-18)
+            else:
                 if out:
                     return out
-            except Exception:
-                self._model_failed = True  # one-shot degradation (ner.rs:10-18)
         return self._rules.extract(text)
 
     def extract_names(self, text: str, min_confidence: float = 0.0) -> list[str]:

@@ -7,12 +7,15 @@ normalization and particle verbs) feeding typed graph edges. Two paths:
   verb family member or inflected verb), take the content-word span before
   it as subject and after it as object, normalize passives
   ("X was caused by Y" -> (Y, cause, X));
-- parse-driven extraction over the learned dependency parser, which the
-  port does not have yet: ``extract_triples_auto`` raises under
-  ``SHODH_LEARNED_PARSER=1`` where the JAX package's would take it.
+- parse-driven extraction (``extract_triples_parsed``): rides the learned
+  dependency parser (nlp/learned_parser.py — the reference rides its
+  vendored spaCy parser the same way): predicate = a VERB head, subject =
+  the nsubj/nsubjpass child's NP span, object = dobj/acomp/attr (or the
+  by-agent for passives), particle from prt.
 
-Graph ingest consumes ``extract_triples_auto``
-(graph_memory.ingest_experience).
+``extract_triples_auto`` picks parse-driven when ``SHODH_LEARNED_PARSER=1``
+(falling back per sentence when the parse yields nothing) — graph ingest
+consumes it (graph_memory.ingest_experience).
 """
 
 from __future__ import annotations
@@ -127,12 +130,91 @@ def extract_triples(text: str, max_per_sentence: int = 3) -> list[Triple]:
     return triples
 
 
+# -- parse-driven extraction -----------------------------------------------------
+
+_NP_CHILD_DEPS = frozenset(("compound", "amod", "poss", "nummod"))
+_OBJ_DEPS = ("dobj", "acomp", "attr")
+
+
+def _np_of(tokens, head_idx: int) -> Optional[str]:
+    """Content NP span for a nominal head: modifier children + the head."""
+    picks = [head_idx]
+    for i, t in enumerate(tokens):
+        if t.head == head_idx and t.dep in _NP_CHILD_DEPS:
+            picks.append(i)
+    words = [tokens[i].text for i in sorted(set(picks))
+             if tokens[i].text.lower() not in STOPWORDS or len(picks) == 1]
+    span = " ".join(words).strip(" ,.")
+    return span if len(span) >= 3 else None
+
+
+def extract_triples_parsed(text: str, annotator) -> list[Triple]:
+    """SVO triples from dependency parses (openie.rs parse path)."""
+    triples: list[Triple] = []
+    for sent in _SENT_RE.split(text):
+        if len(sent.split()) < 3:
+            continue
+        tokens = annotator(sent)
+        children: dict[int, list[int]] = {}
+        for i, t in enumerate(tokens):
+            if t.dep != "ROOT":
+                children.setdefault(t.head, []).append(i)
+        cue = predicate_from_cues(sent)
+        for v, tok in enumerate(tokens):
+            if tok.pos != "VERB":
+                continue
+            kids = children.get(v, [])
+            subj_i = next((i for i in kids if tokens[i].dep == "nsubj"), None)
+            pass_i = next((i for i in kids if tokens[i].dep == "nsubjpass"), None)
+            obj_i = next((i for i in kids if tokens[i].dep in _OBJ_DEPS), None)
+            particle = next((tokens[i].text for i in kids if tokens[i].dep == "prt"), "")
+            if pass_i is not None:
+                # passive: by-agent becomes the subject, nsubjpass the object
+                by_i = next((i for i in kids
+                             if tokens[i].dep == "prep" and tokens[i].text.lower() == "by"),
+                            None)
+                agent_i = None
+                if by_i is not None:
+                    agent_i = next((i for i, t in enumerate(tokens)
+                                    if t.head == by_i and t.dep == "pobj"), None)
+                if agent_i is None:
+                    continue
+                subj_span = _np_of(tokens, agent_i)
+                obj_span = _np_of(tokens, pass_i)
+            else:
+                if subj_i is None:
+                    continue
+                if obj_i is None:
+                    # fall back to the first prepositional object
+                    prep_i = next((i for i in kids if tokens[i].dep == "prep"), None)
+                    if prep_i is not None:
+                        obj_i = next((i for i, t in enumerate(tokens)
+                                      if t.head == prep_i and t.dep == "pobj"), None)
+                if obj_i is None:
+                    continue
+                subj_span = _np_of(tokens, subj_i)
+                obj_span = _np_of(tokens, obj_i)
+            if not subj_span or not obj_span or subj_span.lower() == obj_span.lower():
+                continue
+            verb = tok.lemma or tok.text.lower()
+            triples.append(
+                Triple(
+                    subject=subj_span,
+                    predicate=f"{tok.text.lower()} {particle}".strip(),
+                    obj=obj_span,
+                    family=predicate_family(verb) or predicate_family(tok.text.lower()),
+                    rel_type=cue[0] if cue else None,
+                )
+            )
+    return triples
+
+
 def extract_triples_auto(text: str) -> list[Triple]:
     """Parse-driven when the learned parser is enabled, surface otherwise."""
     if os.environ.get("SHODH_LEARNED_PARSER") == "1":
-        # the parse-driven path rides the learned dependency parser
-        # (nlp/learned_parser.py), which the port does not have yet
-        raise NotImplementedError(
-            "SHODH_LEARNED_PARSER=1: the learned parser and parse-driven OpenIE "
-            "are not ported yet (ROADMAP.md section 1, item 3.3)")
+        from shodh_tpu_torch.nlp.learned_parser import learned_backend
+
+        parsed = extract_triples_parsed(text, learned_backend())
+        if parsed:
+            return parsed
     return extract_triples(text)

@@ -329,6 +329,8 @@ static std::vector<std::string> tokenize(const char* text) {
 struct Bm25Index {
     std::unordered_map<std::string, std::unordered_map<uint64_t, float>> postings;
     std::unordered_map<uint64_t, float> doc_len;
+    // each doc's terms as last upserted: a remove visits only their lists
+    std::unordered_map<uint64_t, std::vector<std::string>> doc_terms;
     std::unordered_map<uint64_t, uint8_t> doc_class;  // per-doc param class
     double total_len = 0.0;
     std::mutex mu;
@@ -567,11 +569,15 @@ void shodh_bm25_remove(void* h, uint64_t doc) {
     if (it == idx->doc_len.end()) return;
     idx->total_len -= it->second;
     idx->doc_len.erase(it);
-    for (auto pit = idx->postings.begin(); pit != idx->postings.end();) {
+    auto dit = idx->doc_terms.find(doc);
+    if (dit == idx->doc_terms.end()) return;
+    for (auto& term : dit->second) {
+        auto pit = idx->postings.find(term);
+        if (pit == idx->postings.end()) continue;
         pit->second.erase(doc);
-        if (pit->second.empty()) pit = idx->postings.erase(pit);
-        else ++pit;
+        if (pit->second.empty()) idx->postings.erase(pit);
     }
+    idx->doc_terms.erase(dit);
 }
 
 // weighted term list: "term\tweight\n..." (pre-tokenized by caller or via
@@ -591,7 +597,12 @@ void shodh_bm25_upsert_text(void* h, uint64_t doc, const char* content,
     std::lock_guard<std::mutex> lock(idx->mu);
     idx->doc_len[doc] = len;
     idx->total_len += len;
-    for (auto& [term, f] : tf) idx->postings[term][doc] = f;
+    auto& terms = idx->doc_terms[doc];
+    terms.clear();
+    for (auto& [term, f] : tf) {
+        idx->postings[term][doc] = f;
+        terms.push_back(term);
+    }
 }
 
 // Pre-tokenized upsert: terms as "term\tweight\n" lines. Gives the caller
@@ -615,7 +626,12 @@ void shodh_bm25_upsert_terms(void* h, uint64_t doc, const char* term_lines) {
     std::lock_guard<std::mutex> lock(idx->mu);
     idx->doc_len[doc] = len;
     idx->total_len += len;
-    for (auto& [term, f] : tf) idx->postings[term][doc] = f;
+    auto& terms = idx->doc_terms[doc];
+    terms.clear();
+    for (auto& [term, f] : tf) {
+        idx->postings[term][doc] = f;
+        terms.push_back(term);
+    }
 }
 
 int shodh_bm25_doc_count(void* h) {

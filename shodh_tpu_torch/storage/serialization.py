@@ -83,10 +83,38 @@ def _pack_len(n: int, out: bytearray, fix: int, fix_max: int, codes: bytes) -> N
         raise ValueError(f"object of length {n} is too large to serialize")
 
 
+_F64 = struct.Struct(">d")
+
+
+def _pack_str(obj: str, out: bytearray) -> None:
+    b = obj.encode("utf-8")
+    _pack_len(len(b), out, 0xA0, 32, b"\xd9\xda\xdb")
+    out += b
+
+
 def _pack(obj, out: bytearray, depth: int) -> None:
     if depth > _NEST_LIMIT:
         raise ValueError("recursion limit exceeded.")
-    if obj is None:
+    # the record types by exact type first (the common cases: a dict of
+    # str keys and float or str values); subclasses take the chain below
+    t = type(obj)
+    if t is str:
+        _pack_str(obj, out)
+    elif t is float:
+        out += b"\xcb" + _F64.pack(obj)
+    elif t is dict:
+        _pack_len(len(obj), out, 0x80, 16, b"\xde\xdf")
+        inline = depth < _NEST_LIMIT  # a child at depth + 1 is within the limit
+        for k, v in obj.items():
+            if inline and type(k) is str:
+                _pack_str(k, out)
+            else:
+                _pack(k, out, depth + 1)
+            if inline and type(v) is float:
+                out += b"\xcb" + _F64.pack(v)
+            else:
+                _pack(v, out, depth + 1)
+    elif obj is None:
         out.append(0xC0)
     elif obj is True:
         out.append(0xC3)
@@ -189,10 +217,25 @@ def _unpack(data: bytes, pos: int, depth: int):
             v, pos = _unpack(data, pos, depth + 1)
             items.append(v)
         return items, pos
+    # maps read fixstr keys and float64 values in place (the common record
+    # shapes); any other key or value, and every error, takes _unpack
     out = {}
+    size = len(data)
+    inline = depth < _NEST_LIMIT  # a child at depth + 1 is within the limit
     for _ in range(n):
-        k, pos = _unpack(data, pos, depth + 1)
-        v, pos = _unpack(data, pos, depth + 1)
+        c = data[pos] if inline and pos < size else -1
+        if 0xA0 <= c <= 0xBF:
+            end = pos + 1 + (c & 0x1F)
+            _need(data, end)
+            k = data[pos + 1:end].decode("utf-8")
+            pos = end
+        else:
+            k, pos = _unpack(data, pos, depth + 1)
+        if inline and pos + 9 <= size and data[pos] == 0xCB:
+            v = _F64.unpack_from(data, pos + 1)[0]
+            pos += 9
+        else:
+            v, pos = _unpack(data, pos, depth + 1)
         out[k] = v
     return out, pos
 

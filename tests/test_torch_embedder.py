@@ -3,6 +3,7 @@ JAX package's: bit-equal vectors and equal stems, folds and tables."""
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -127,8 +128,10 @@ def test_cached_embedder_and_breaker_match_reference(embedders):
 
 
 def test_default_embedder(monkeypatch, tmp_path):
-    """The hash embedder offline, as the reference; where the reference would
-    load a MiniLM checkpoint, the port raises and names the missing port."""
+    """The hash embedder offline, as the reference; a configured MiniLM
+    directory is loaded as the reference loads it (one without weights
+    raises ``FileNotFoundError`` in both), on the card unless the caller
+    names the CPU (without a card, ``device=None`` raises)."""
     monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.delenv(port_embedder.ENV_MINILM_DIR, raising=False)
     emb = port_embedder.default_embedder()
@@ -139,9 +142,14 @@ def test_default_embedder(monkeypatch, tmp_path):
     ckpt = tmp_path / "minilm"
     ckpt.mkdir()
     monkeypatch.setenv(port_embedder.ENV_MINILM_DIR, str(ckpt))
-    with pytest.raises(NotImplementedError, match="MiniLMEmbedder"):
-        port_embedder.default_embedder()
+    with pytest.raises(FileNotFoundError, match="no model weights"):
+        port_embedder.default_embedder(device="cpu")
+    with pytest.raises(FileNotFoundError, match="no model weights"):
+        ref_embedder.default_embedder()
     monkeypatch.delenv(port_embedder.ENV_MINILM_DIR)
     (tmp_path / ".cache" / "shodh-tpu" / "minilm").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="MiniLMEmbedder"):
-        port_embedder.default_embedder()
+    with pytest.raises(FileNotFoundError, match="no model weights"):
+        port_embedder.default_embedder(device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_embedder.default_embedder()

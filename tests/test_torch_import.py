@@ -92,6 +92,13 @@ PORT_MODULES = [
     "shodh_tpu_torch.harness.decay_sim",
     "shodh_tpu_torch.harness.agent_loop",
     "shodh_tpu_torch.cli",
+    "shodh_tpu_torch.models.tokenizer",
+    "shodh_tpu_torch.models.minilm",
+    "shodh_tpu_torch.models.gliner",
+    "shodh_tpu_torch.models.adjacency_metric",
+    "shodh_tpu_torch.nlp.entity_type",
+    "shodh_tpu_torch.nlp.dep_parser",
+    "shodh_tpu_torch.nlp.learned_parser",
     "chip_smoke",
 ]
 _ABSENT = ("jax", "shodh_tpu", "msgpack")  # never imported by a port process
@@ -105,7 +112,7 @@ _FORBIDDEN = re.compile(
 def _port_sources():
     files = sorted((ROOT / "shodh_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_search.py",
-        ROOT / "tools" / "torch_legs_ab.py"]
+        ROOT / "tools" / "torch_legs_ab.py", ROOT / "tools" / "torch_ingest_ab.py"]
     assert len(files) >= 10
     return files
 

@@ -19,6 +19,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -196,10 +197,22 @@ def test_ner_without_the_tagger_uses_the_rules(texts, monkeypatch):
 
 
 def test_configured_gliner_raises(tmp_path, monkeypatch):
-    (tmp_path / "model.npz").write_bytes(b"")
-    monkeypatch.setenv("SHODH_GLINER_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        NeuralNer()
+    """A configured GLiNER checkpoint loads the typer on the card, so without
+    one ``NeuralNer()`` raises; on the CPU it serves. A corrupt checkpoint
+    degrades to the rules in both packages."""
+    from test_torch_gliner import write_checkpoint
+
+    write_checkpoint(tmp_path / "ok", int8=True)
+    monkeypatch.setenv("SHODH_GLINER_DIR", str(tmp_path / "ok"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            NeuralNer()
+    served = NeuralNer(device="cpu")
+    assert not served.degraded and any(m.fine for m in served.extract("alice visited tokyo"))
+    (tmp_path / "bad").mkdir()
+    (tmp_path / "bad" / "model.npz").write_bytes(b"")
+    monkeypatch.setenv("SHODH_GLINER_DIR", str(tmp_path / "bad"))
+    assert NeuralNer(device="cpu").degraded and RefNer().degraded
     monkeypatch.setenv("SHODH_GLINER_DIR", str(tmp_path / "absent"))
     assert not NeuralNer().degraded
 

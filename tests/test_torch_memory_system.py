@@ -325,11 +325,33 @@ def test_what_the_staged_funnel_serves_equals_reference(stores, tmp_path, query)
 
 
 def test_configured_gliner_raises(tmp_path, monkeypatch):
-    (tmp_path / "gliner").mkdir()
-    (tmp_path / "gliner" / "model.npz").write_bytes(b"")
+    """``MemorySystem`` builds its NER on its own device: with a configured
+    GLiNER checkpoint the typer serves ``remember``'s entities on the CPU
+    system as the reference's does, and an error of the typer reaches the
+    caller of ``remember``."""
+    from test_torch_gliner import write_checkpoint
+
+    from shodh_tpu_torch.models.minilm import MiniLM
+
+    write_checkpoint(tmp_path / "gliner", int8=True)
     monkeypatch.setenv("SHODH_GLINER_DIR", str(tmp_path / "gliner"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        open_system("port", tmp_path / "s")
+    port, ref = open_system("port", tmp_path / "s"), open_system("ref", tmp_path / "r")
+    try:
+        assert port.ner._model is not None and port.ner._degrade is False
+        text = "alice visited the tokyo office in april"
+        got = [(m.text, m.label, m.start, m.fine) for m in port.ner.extract(text)]
+        assert got == [(m.text, m.label, m.start, m.fine) for m in ref.ner.extract(text)]
+        assert any(fine for *_, fine in got)
+
+        def broken(*a, **k):
+            raise RuntimeError("CUDA error: device-side assert triggered")
+
+        monkeypatch.setattr(MiniLM, "encode_token_states", broken)
+        with pytest.raises(RuntimeError, match="device-side assert"):
+            port.remember(PT.Experience(content=text))
+    finally:
+        port.close()
+        ref.close()
 
 
 def test_port_process_imports_no_jax(tmp_path):

@@ -169,6 +169,10 @@ def test_openie_finds_typed_triples():
 
 
 def test_learned_parser_branch_is_not_ported(monkeypatch):
+    """The learned-parser branch of ``extract_triples_auto`` is ported: under
+    ``SHODH_LEARNED_PARSER=1`` it gives the reference's triples."""
     monkeypatch.setenv("SHODH_LEARNED_PARSER", "1")
-    with pytest.raises(NotImplementedError, match="learned parser"):
-        openie.extract_triples_auto("Alice works at Acme.")
+    text = "Alice works at Acme. The outage was caused by Redis after Bob joined Initech."
+    got = openie.extract_triples_auto(text)
+    assert got and [dataclasses.asdict(t) for t in got] == [
+        dataclasses.asdict(t) for t in ref_openie.extract_triples_auto(text)]

@@ -211,20 +211,36 @@ def trp_kv(path) -> dict:
 
 @pytest.mark.parametrize("knob", ["SHODH_ADJ_METRIC_ALPHA"])
 def test_refused_branches_raise(store, tmp_path, monkeypatch, knob):
-    """The adjacency metric is not ported: where the reference would fit or
-    load it, NotImplementedError, never a silent skip."""
+    """The adjacency metric, refused until this slice, now runs where the
+    reference's does: ``adapt_semantics`` fits it in the raw hash space over
+    the same texts (``W`` bit-equal to the reference's fit), saves it, warps
+    the embedder and re-embeds the store; ``reload_semantic_model``
+    attaches the saved one."""
+    from shodh_tpu.models.adjacency_metric import AdjacencyMetric as RefMetric
+    from shodh_tpu.models.adjacency_metric import adjacency_pairs as ref_pairs
+    from shodh_tpu.models.hash_embedder import HashEmbedder as RefHash
+
     shutil.copytree(store.root / "store", tmp_path / "s")
     for suffix in (".json", ".npz"):
         (tmp_path / "s" / f"semantic_model{suffix}").unlink()
     system = _port_system(tmp_path / "s")
+    rebuilds = []
+    system.rebuild_index = lambda: rebuilds.append(1)
     monkeypatch.setenv(knob, "0.3")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        semantics.adapt_semantics(system)
-    assert system.embedder._sem_model is None
-    assert not (tmp_path / "s" / "semantic_model.json").exists()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        semantics.reload_semantic_model(SimpleNamespace(
-            embedder=HashEmbedder(), data_dir=store.root / "store"))
+    assert semantics.adapt_semantics(system)
+    assert rebuilds == [1]
+    assert system.embedder._adj_metric is not None and system.embedder._adj_alpha == 0.3
+    assert "+adj0.3n" in system.embedder.name
+    mems = list(RefStorage(store.root / "store").iter_memories())
+    texts = [m.experience.content for m in mems]
+    want = RefMetric.fit(RefHash().encode_batch(texts), ref_pairs(mems))
+    saved = np.load(tmp_path / "s" / "adjacency_metric.npz")["w"]
+    np.testing.assert_array_equal(saved, want.w)
+    reloaded = SimpleNamespace(embedder=HashEmbedder(), data_dir=tmp_path / "s")
+    semantics.reload_semantic_model(reloaded)
+    assert reloaded.embedder.name == system.embedder.name
+    np.testing.assert_array_equal(reloaded.embedder.encode_batch(texts[:20]),
+                                  system.embedder.encode_batch(texts[:20]))
     system.storage.close()
 
 
