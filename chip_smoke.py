@@ -69,8 +69,10 @@ Phases, each printing one JSON line:
    interference through K1's batched search, replay, lineage), the host
    seconds of each ``remember`` step, K1's launches; the stores compared kv
    row by kv row, the index's host arrays and the row mirrors' incremental
-   fill held to a full build; 48 plain recalls with usage writes held to the
-   twin's; 16 staged recalls (``STAGED_SHAPES``: filters, the rungs of the
+   fill held to a full build; 24 plain recalls with usage writes held to the
+   twin's (``SYSTEM_RECALLS_CARD``; 48 by default); 8 staged recalls
+   (``STAGED_RECALLS_CARD``: the first eight of ``STAGED_SHAPES``; 16 by
+   default, one of each of: filters, the rungs of the
    layer ladder, an offset, a caller's embedding, the device funnel off,
    RRF fusion, diagnostics, the enumeration day-bucket union, a scoring
    A/B, a filter-only query), their vector legs through K1 on the card,
@@ -87,7 +89,29 @@ Phases, each printing one JSON line:
    the dumps equal the JAX package's committed under
    ``tests/torch_eval_dumps``, and the card's recall latency percentiles per
    layer;
-10. the ``kernels`` line: launches on the main path, errors and times.
+10. ``server``: the port's HTTP server (``server/app.py`` over its own
+    ``server/web.py``) in this process on the card, over phase 8's store as
+    user ``agent`` under the data directory, bound to 127.0.0.1:0 with the
+    rate limiter lifted, driven over a real socket: ``/health``, the open
+    (timed), ``/health/index``, 24 plain recalls (usage writes), 8 staged
+    recalls of the shapes phase 8's cut leaves out (``SERVER_STAGED``: the
+    two phases together run every one of ``STAGED_SHAPES`` on the card; the
+    scoring A/B through ``/api/ab/tests``), 512
+    turns by ``/api/batch_remember`` in calls of 64 and 32 by
+    ``/api/remember`` with their ``created_at``, 16 ``/api/proactive_context``,
+    a remember and a recall over the IPC socket (after its HMAC handshake)
+    held to the same two over HTTP, the route tour (``tools/server_tour.py``: one
+    request to every route, for a user of its own), 8 readonly recalls of
+    the served user one after another and then from 8 threads at once (a
+    smoke reading of requests/s, not a throughput: one user's recalls queue
+    on its engine's lock); K1's launches on the served path (one per ingest
+    chunk of 8 and per search of the served index); the server stops as
+    SIGINT would; a CPU twin replays the same requests in a process of its
+    own over a copy taken first, and every reply must equal it; then
+    ``python -m shodh_tpu_torch.cli serve`` on the card over the stopped
+    store answers ``/health``, reopens the user without healing and exits 0
+    on SIGINT;
+11. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
 the script exits non-zero; without a CUDA device it exits non-zero at once.
@@ -1608,6 +1632,10 @@ SYSTEM_CALL = 64  # experiences per batch_remember call: 8 ingest chunks of 8
 SYSTEM_SEED = 8191  # the session ids' seeded sequence
 # Plain recalls with usage writes, 8 of each leg shape
 SYSTEM_RECALLS = 48
+# main's depth of phase 8 on the card, cut from 48 plain and 16 staged recalls
+# to make room for the server phase (which drives 24 plain and 8 more staged
+# shapes over the same store through the HTTP API)
+SYSTEM_RECALLS_CARD, STAGED_RECALLS_CARD = 24, 8
 DBS = ("memories.db", "bm25/bm25.db", "graph/graph.db")  # a store's kv databases
 PIVOTS = ("we should pivot to a new strategy for the", "time to start fresh with the",
           "scrap this plan, a complete rewrite of the")
@@ -2232,7 +2260,7 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
 
 
 def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, k=ENGINE_K,
-                 seed=SEED, expect_k1=True, n_staged=STAGED_RECALLS) -> dict:
+                 seed=SEED, expect_k1=True, n_staged=STAGED_RECALLS, after_card=None) -> dict:
     """``MemorySystem`` on ``device`` over the engine phase's store under
     ``root`` (made quiet by ``make_store_quiet``), then a CPU twin in a
     process of its own over a copy of the store under ``work`` (the same
@@ -2245,7 +2273,8 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
     row by kv row, the index's host arrays bit for bit, the saved semantic
     models byte for byte, every recall's answer (ids in order, scores rtol
     1e-5, atol 1e-7) and diagnostics, the maintenance reports, and the
-    recalls after the maintenance and the reopen."""
+    recalls after the maintenance and the reopen. ``after_card`` is called
+    once the card's side has closed its store, before the twin is awaited."""
     import shutil
     from pathlib import Path
 
@@ -2264,6 +2293,8 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
 
         rec = drive_system(root, device, work / "card_ingest", n, n_calls, k, seed, card=True,
                            expect_k1=expect_k1, after_recall=start_twin, n_staged=n_staged)
+        if after_card is not None:
+            after_card()  # the card's side is done and its store closed
         t1 = time.perf_counter()
         twin = twin_job[0].result()
         rec["twin_wait_s"] = time.perf_counter() - t1
@@ -2713,6 +2744,494 @@ def phase_minilm(work, device="cuda", n=ENGINE_MEMORIES, n_more=MINILM_MORE,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the HTTP server on the card
+# ---------------------------------------------------------------------------
+
+SERVER_USER = "agent"  # phases 6-8's store, served from data_dir/users/agent
+SERVER_KEY = "chip-smoke-key"
+SERVER_RECALLS = 24  # plain recalls, the legs shapes, usage writes on
+# the staged shapes that phase 8's cut depth (its first eight shapes) leaves
+# out, each asked for by a request body or an env knob; "scoring_ab" is a
+# scoring:fusion experiment created, started, recalled under and paused
+# through the /api/ab routes
+SERVER_STAGED = ("time_types", "importance", "funnel_off", "rrf", "diagnostics", "enum_union",
+                 "scoring_ab", "filter_only")
+SCORING_AB = {"name": "scoring:fusion",
+              "variants": {"a": {"vec_trust": 0.7}, "b": {"graph_weight_scale": 0.5}}}
+SERVER_BATCH = 512  # conversation turns in batch_remember calls of SYSTEM_CALL
+SERVER_SINGLE = 32  # then one by one through /api/remember, created_at given
+SERVER_PROACTIVE = 16
+SERVER_CONCURRENT = 8  # readonly recalls, one after another, then from 8 threads at once
+SERVER_SEED = 12289
+SERVER_TWIN_THREADS = 4
+
+
+class SeededUuid4:
+    """``uuid.uuid4`` for the port's modules from one seeded sequence (the
+    session, todo, reminder, A/B and tracking ids a server mints); any other
+    caller gets the real one. Both sides of a comparison draw the same ids."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.real = uuid.uuid4
+
+    def __call__(self):
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if not caller.startswith("shodh_tpu_torch"):
+            return self.real()
+        return uuid.UUID(bytes=self.rng.bytes(16), version=4)
+
+
+def _staged_body(shape: str, text: str, j: int, now) -> tuple[dict, dict]:
+    """A recall request of ``shape`` (``staged_call``'s shapes) and its env knobs."""
+    from datetime import timedelta
+
+    q = {"query": text, "max_results": ENGINE_K}
+    knobs = {}
+    if shape == "tags":
+        q["tags"] = [TAGS[j % len(TAGS)]]
+    elif shape == "time_types":
+        q["time_range"] = [(now - timedelta(days=120)).isoformat(), now.isoformat()]
+        q["experience_types"] = ["conversation"]
+    elif shape == "importance":
+        q["importance_threshold"] = 0.3
+    elif shape == "funnel_off":
+        knobs["SHODH_DEVICE_FUNNEL"] = "0"
+    elif shape == "rrf":
+        knobs["SHODH_FUSION_RRF"] = "1"
+    elif shape == "diagnostics":
+        q["debug"] = True
+    elif shape == "enum_union":
+        knobs["SHODH_ENUM_DAY_UNION"] = "1"
+        q["query"] = f"which {WORDS[j % len(WORDS)]}s has {text}"
+    elif shape == "filter_only":
+        q = {"tags": [TAGS[j % len(TAGS)]], "max_results": ENGINE_K}
+    return q, knobs
+
+
+def server_script(system, seed: int = SERVER_SEED, n_recalls: int = SERVER_RECALLS,
+                  staged=SERVER_STAGED, n_batch: int = SERVER_BATCH,
+                  n_single: int = SERVER_SINGLE, n_proactive: int = SERVER_PROACTIVE) -> list:
+    """The server phase's requests to the served user, in order, each with the
+    time its clock is pinned to (``now``), its env knobs and its transport:
+    plain recalls, staged recalls (a scoring A/B's among them, between the
+    requests that create, start and pause it; ``{ab}`` in a path is the
+    created experiment's id), ``batch_remember`` calls of 64 turns (5-40
+    minutes apart), turns one by one through ``/api/remember`` with their
+    ``created_at``, proactive context, then one remember and one recall over
+    the local IPC socket and the same two over HTTP for another user."""
+    from datetime import timedelta
+
+    from shodh_tpu_torch.retrieval.bm25 import tokenize
+
+    postings = system.bm25._postings
+    known = lambda e: all(t in postings for t in tokenize(e))  # noqa: E731
+    stored = [system.storage.get(system.storage.memory_for_row(int(row))).experience.content
+              for row in np.random.default_rng(seed).choice(
+                  len(system.index), min(512, len(system.index)), replace=False)]
+    now = engine_now() + timedelta(days=3)
+    texts = leg_queries(n_recalls + len(staged) + n_proactive, seed + 1, known=known)
+    user = {"X-User-ID": SERVER_USER}
+    script = []
+
+    def step(label, method, path, body=None, at=now, knobs=None, headers=user, via="http"):
+        script.append({"label": label, "method": method, "path": path, "body": body,
+                       "now": at.isoformat(), "env": knobs or {}, "headers": headers,
+                       "via": via})
+
+    for t in texts[:n_recalls]:
+        step("recall", "POST", "/api/recall", {"query": t, "max_results": ENGINE_K})
+    for j, t in enumerate(texts[n_recalls:n_recalls + len(staged)]):
+        body, knobs = _staged_body(staged[j], t, j, now)
+        if staged[j] == "scoring_ab":
+            step("ab_create", "POST", "/api/ab/tests", SCORING_AB)
+            step("ab_start", "POST", "/api/ab/tests/{ab}/start", {})
+        step(f"staged:{staged[j]}", "POST", "/api/recall", body, knobs=knobs)
+        if staged[j] == "scoring_ab":
+            step("ab_pause", "POST", "/api/ab/tests/{ab}/pause", {})
+    calls = system_calls(n_batch + n_single, seed + 2, stored, now)
+    singles = [e for _, batch in calls for e in batch][n_batch:]
+    for at, batch in calls[: n_batch // SYSTEM_CALL]:
+        step("batch", "POST", "/api/batch_remember",
+             {"memories": [e.to_dict() for e in batch]}, at=at)
+    last = calls[n_batch // SYSTEM_CALL - 1][0]
+    for j, e in enumerate(singles):
+        at = last + timedelta(minutes=3 * (j + 1))
+        step("remember", "POST", "/api/remember", {**e.to_dict(), "created_at": at.isoformat()},
+             at=at)
+    after = last + timedelta(minutes=3 * (n_single + 1))
+    for t in texts[n_recalls + len(staged):]:
+        step("proactive", "POST", "/api/proactive_context",
+             {"text": t, "entities": [w for w in t.split() if w[:1].isupper()][:2], "limit": 5},
+             at=after)
+    ipc_body = {"content": "the server phase remembers this over both transports",
+                "tags": ["transport"], "created_at": after.isoformat()}
+    query = {"query": "server phase transports", "max_results": ENGINE_K}
+    for via, uid in (("ipc", "ipc-a"), ("http", "ipc-b")):
+        step(f"{via}_remember", "POST", "/api/remember", ipc_body, at=after,
+             headers={"X-User-ID": uid}, via=via)
+        step(f"{via}_recall", "POST", "/api/recall", query, at=after,
+             headers={"X-User-ID": uid}, via=via)
+    return script
+
+
+def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
+                 n_concurrent: int = SERVER_CONCURRENT, sizes: dict | None = None) -> dict:
+    """One side of the server phase: the port's server (``make_server``: the
+    manager on ``device``, the schedulers, the IPC socket under ``work``)
+    in this process on a loop of its own, bound to 127.0.0.1:0, driven over a
+    real socket: ``/health``, the request that opens the served user (timed),
+    ``/health/index``, the script that ``server_script(**sizes)`` builds from
+    the opened store, the route tour for user ``tour``, and on the card
+    8 readonly recalls at concurrency 1 and 8; then the server stops as SIGINT
+    would. Returns the script, every reply with its status and host ms, the
+    served index's searches, and on the card K1's launches on the script."""
+    from datetime import datetime
+    from pathlib import Path
+
+    from shodh_tpu_torch.server import app as app_mod
+    from shodh_tpu_torch.server import web
+    from tools import server_tour as tour
+    from shodh_tpu_torch.server.local_ipc import LocalIpcClient
+    from shodh_tpu_torch.utils.clock import pin_now
+
+    if not card:
+        import torch
+
+        torch.set_num_threads(SERVER_TWIN_THREADS)
+    t_start = time.perf_counter()
+    key = {"X-API-Key": SERVER_KEY}
+    bucket, tick, uuid4 = app_mod._BUCKET, app_mod.REMINDER_INTERVAL_SECS, uuid.uuid4
+    rec: dict = {}
+    with env(SHODH_API_KEYS=SERVER_KEY, SHODH_DEV_API_KEY=None, SHODH_TELEMETRY=None,
+             SHODH_IPC_PATH=None, SHODH_IPC_ENABLED=None):
+        # the rate limiter lifted: 8 client threads and the tour from one address
+        app_mod._BUCKET = app_mod.TokenBucket(rate_per_sec=1e9, burst=1e9)
+        # no reminder fires on its own tick: GET /api/reminders/due answers
+        # the same on both sides (R17)
+        app_mod.REMINDER_INTERVAL_SECS = 1e9
+        uuid.uuid4 = SeededUuid4(seed)
+        sock = Path(work) / "shodh.sock"
+        app = app_mod.make_server(str(data_dir), ipc_path=str(sock), device=device)
+        server = web.BackgroundServer(app)
+        try:
+            client = tour.HttpClient(f"http://127.0.0.1:{server.port}")
+            ipc = LocalIpcClient(sock)
+            status, _ = client.request("GET", "/health")
+            if status != 200:
+                raise AssertionError(f"server: /health answered {status}")
+            opened = {"X-User-ID": SERVER_USER, **key}
+            t0 = time.perf_counter()
+            status, stats = client.request("GET", "/api/stats", None, opened)
+            rec["open_s"] = time.perf_counter() - t0
+            if status != 200:
+                raise AssertionError(f"server: opening {SERVER_USER} answered {status}")
+            rec["memories_before"] = stats["total_memories"]
+            system = app["manager"].get_user_memory(SERVER_USER)
+            rec["index_rows_before"] = len(system.index)
+            status, health = client.request("GET", "/health/index")
+            replies = [{"label": "health_index", "status": status, "body": health, "ms": 0.0}]
+            script = server_script(system, seed, **(sizes or {}))
+            rec["script"] = script
+            searches, search = [], system.index.search
+
+            def counted_search(queries, k):
+                searches.append((int(np.asarray(queries).shape[0]), bool(system.index._pending)))
+                return search(queries, k)
+
+            system.index.search = counted_search
+            if card:
+                reset_launches()
+            saved = {}
+            try:
+                for st in script:
+                    pin_now(datetime.fromisoformat(st["now"]))
+                    hdrs = {**key, **st["headers"]}
+                    path = st["path"].format(**saved)
+                    t0 = time.perf_counter()
+                    with env(**st["env"]):
+                        if st["via"] == "ipc":
+                            frame = {"method": st["method"], "path": path,
+                                     "body": st["body"], "user_id": st["headers"]["X-User-ID"]}
+                            out = ipc.exchange([frame])[0]
+                            status, body = out["status"], out["body"]
+                        else:
+                            status, body = client.request(st["method"], path, st["body"], hdrs)
+                    if st["label"] == "ab_create":
+                        saved["ab"] = body["experiment"]["id"]
+                    replies.append({"label": st["label"], "status": status, "body": body,
+                                    "ms": (time.perf_counter() - t0) * 1e3})
+                _sync(device)
+            finally:
+                pin_now(None)
+                del system.index.search
+            if card:
+                rec["launches"] = read_launches()
+            rec["searches"] = searches
+            rec["replies"] = replies
+            rec["memories_after"] = system.storage.count()
+            # the route tour, for a user of its own (a small store)
+            send, stream, tclient = tour.http_runner(f"http://127.0.0.1:{server.port}")
+            t0 = time.perf_counter()
+            scan_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "shodh_tpu_torch", "data")  # the same on both sides
+            rec["tour"] = tour.run_tour(send, stream, pin_now, tour.steps(scan_dir), "tour", key)
+            rec["tour_s"] = time.perf_counter() - t0
+            tclient.close()
+            if card:
+                rec["concurrency"] = _concurrency(server.port, opened, script, n_concurrent)
+            client.close()
+        finally:
+            t0 = time.perf_counter()
+            server.stop()  # as SIGINT: the schedulers stop, the manager saves and closes
+            rec["stop_s"] = time.perf_counter() - t0
+            app_mod._BUCKET, app_mod.REMINDER_INTERVAL_SECS, uuid.uuid4 = bucket, tick, uuid4
+    rec["side_s"] = time.perf_counter() - t_start
+    return rec
+
+
+def _concurrency(port: int, headers: dict, script: list, n: int) -> dict:
+    """Requests/s of ``n`` readonly plain recalls (``SHODH_RECALL_READONLY=1``)
+    one after another on one connection, then from ``n`` client threads at
+    once, one connection each; each concurrent reply held to its sequential one."""
+    import threading
+
+    from tools import server_tour as tour
+
+    bodies = [st["body"] for st in script if st["label"] == "recall"][:n]
+    out = {"n": len(bodies)}
+    with env(SHODH_RECALL_READONLY="1"):
+        client = tour.HttpClient(f"http://127.0.0.1:{port}")
+        t0 = time.perf_counter()
+        seq = [client.request("POST", "/api/recall", b, headers) for b in bodies]
+        out["c1_rps"] = len(bodies) / (time.perf_counter() - t0)
+        client.close()
+        results = [None] * len(bodies)
+
+        def worker(i):
+            c = tour.HttpClient(f"http://127.0.0.1:{port}")
+            results[i] = c.request("POST", "/api/recall", bodies[i], headers)
+            c.close()
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out[f"c{len(bodies)}_rps"] = len(bodies) / (time.perf_counter() - t0)
+    for got, want in zip(results, seq):
+        diffs = tour.differences(got[1], want[1])
+        if got[0] != 200 or want[0] != 200 or diffs:
+            raise AssertionError(f"server: a concurrent recall differs from its sequential "
+                                 f"reply ({got[0]}, {diffs[:3]})")
+    return out
+
+
+def _ms(values) -> dict:
+    return ms_stats(np.asarray(values) / 1e3) if values else {}
+
+
+def _cli_serve_check(data_dir, device, expect_memories: int) -> dict:
+    """``python -m shodh_tpu_torch.cli serve`` over the phase's data dir on
+    ``device``: ``/health`` answers 200, the served user reopens without
+    healing (no ``shodh:`` notice) with every memory, and SIGINT exits 0."""
+    import signal
+    import socket
+
+    from tools import server_tour as tour
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [sys.executable, "-m", "shodh_tpu_torch.cli", "serve", "--port", str(port),
+            "--data-dir", str(data_dir)]
+    if str(device) == "cpu":
+        args.append("--cpu")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, "SHODH_API_KEYS": SERVER_KEY,
+                                            "SHODH_IPC_ENABLED": "false"})
+    out = {}
+    try:
+        client = tour.HttpClient(f"http://127.0.0.1:{port}", timeout=300)
+        while True:
+            try:
+                status, _ = client.request("GET", "/health")
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"cli serve did not come up: {proc.communicate()}")
+                time.sleep(0.2)
+        out["health"], out["up_s"] = status, time.perf_counter() - t0
+        t1 = time.perf_counter()
+        status, stats = client.request("GET", "/api/stats", None,
+                                       {"X-API-Key": SERVER_KEY, "X-User-ID": SERVER_USER})
+        out["reopen_s"] = time.perf_counter() - t1
+        client.close()
+        if status != 200 or stats["total_memories"] != expect_memories:
+            raise AssertionError(f"cli serve: the store reopened with {status} {stats}")
+        proc.send_signal(signal.SIGINT)
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["exit"] = proc.returncode
+    healed = [ln for ln in err.splitlines() if ln.startswith("shodh:")]
+    if status != 200 or out["health"] != 200 or proc.returncode != 0 or healed:
+        raise AssertionError(f"cli serve: health {out['health']}, exit {proc.returncode}, "
+                             f"healing {healed}: {err[-2000:]}")
+    out["cli_s"] = time.perf_counter() - t0
+    return out
+
+
+class ServerTwin:
+    """The server phase's CPU twin: ``start()`` copies the served user's
+    store (before anything writes to it) and runs ``drive_server`` on the
+    CPU over the copy in a process of its own, which builds the same script
+    from its copy; ``result()`` waits for it. ``main`` starts it beside phase
+    8's own twin, so that it is done before the card's timed side begins."""
+
+    def __init__(self, data_dir, work, sizes: dict | None = None):
+        from pathlib import Path
+
+        self.data_dir, self.work = Path(data_dir), Path(work)
+        self.twin_data, self.twin_work = self.work / "twin", self.work / "twin_work"
+        self.sizes = sizes
+        self._pool = self._job = None
+
+    def start(self) -> None:
+        import shutil
+
+        t0 = time.perf_counter()
+        shutil.copytree(self.data_dir / "users" / SERVER_USER,
+                        self.twin_data / "users" / SERVER_USER)
+        self.copy_s = time.perf_counter() - t0
+        self.twin_work.mkdir(parents=True)
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self._job = self._pool.submit(drive_server, str(self.twin_data), "cpu",
+                                      str(self.twin_work), sizes=self.sizes)
+
+    def result(self) -> dict:
+        try:
+            return self._job.result()
+        finally:
+            self._pool.shutdown()
+
+
+def phase_server(data_dir, work, device="cuda", expect_k1=True,
+                 n_concurrent: int = SERVER_CONCURRENT, sizes: dict | None = None,
+                 twin: ServerTwin | None = None) -> dict:
+    """The port's server on ``device`` over ``data_dir`` (phase 8's quiet store
+    as user ``agent``): ``drive_server`` on the card's side, and the same
+    script on a CPU twin (``ServerTwin``) in a process of its own over a copy
+    made before anything wrote (``twin`` if given, started earlier, else one
+    started here), awaited before the card's side begins so that nothing runs
+    beside its clocks. Every reply is held to the twin's (status; JSON with
+    ids in order, floats rtol 1e-5, atol 1e-7; ``tour.EXCLUDED_KEYS`` and
+    the data dir's path masked), the IPC replies to the HTTP ones; then
+    ``cli serve`` on the card over the stopped store."""
+    from collections import Counter
+    from pathlib import Path
+
+    from tools import server_tour as tour
+
+    t_phase = time.perf_counter()
+    data_dir, work = Path(data_dir), Path(work)
+    rec = {"phase": "server"}
+    if twin is None:
+        twin = ServerTwin(data_dir, work, sizes)
+        twin.start()
+    t0 = time.perf_counter()
+    twin_rec = twin.result()  # nothing runs beside the card's timed side
+    rec["twin_wait_s"], rec["copy_s"] = time.perf_counter() - t0, twin.copy_s
+    card_work = work / "card_work"
+    card_work.mkdir(parents=True)
+    card = drive_server(data_dir, device, card_work, card=True, n_concurrent=n_concurrent,
+                        sizes=sizes)
+    cli = _cli_serve_check(data_dir, device, card["memories_after"])
+    script = card.pop("script")
+    if twin_rec.pop("script") != script:
+        raise AssertionError("server: the twin built another script from its copy")
+    twin_data, twin = twin.twin_data, twin_rec
+
+    # every reply against the twin's
+    checked = Counter()
+    for got, want in zip(card["replies"], twin["replies"]):
+        if got["status"] != want["status"]:
+            raise AssertionError(f"server {got['label']}: status {got['status']} != the "
+                                 f"twin's {want['status']}: {tour.short(got['body'])}")
+        diffs = tour.differences(tour.normalize(got["body"], data_dir),
+                                 tour.normalize(want["body"], twin_data))
+        if diffs:
+            raise AssertionError(f"server {got['label']}: differs from the twin: {diffs[:4]}")
+        checked[got["label"].split(":")[0]] += 1
+    if len(card["replies"]) != len(twin["replies"]) or len(card["tour"]) != len(twin["tour"]):
+        raise AssertionError("server: the twin answered another number of requests")
+    for got, want in zip(card["tour"], twin["tour"]):
+        diffs = tour.differences(tour.comparable(got, data_dir), tour.comparable(want, twin_data))
+        if got["status"] != want["status"] or diffs:
+            raise AssertionError(f"server tour {got['method']} {got['path']}: {got['status']} "
+                                 f"vs the twin's {want['status']}: {diffs[:3]}")
+        checked["tour"] += 1
+    by = {r["label"]: r for r in card["replies"] if r["label"].startswith(("ipc_", "http_"))}
+    for what in ("remember", "recall"):
+        a, b = by[f"ipc_{what}"], by[f"http_{what}"]
+        # two users: the same memory id and scores, their own session ids
+        diffs = [d for d in tour.differences(a["body"], b["body"]) if ".session_id" not in d]
+        if a["status"] != 200 or a["status"] != b["status"] or diffs:
+            raise AssertionError(f"server: the IPC {what} differs from HTTP's: {diffs[:3]}")
+    if card["searches"] != twin["searches"]:
+        raise AssertionError("server: the twin searched the served index otherwise")
+    for r in card["replies"]:
+        # the recall under the running scoring A/B recorded its one impression
+        if r["label"] == "ab_pause" and (r["status"] != 200 or sum(
+                v["impressions"] for v in r["body"]["experiment"]["stats"].values()) != 1):
+            raise AssertionError(f"server: the scoring A/B: {tour.short(r['body'])}")
+
+    # the served path's K1 launches: one per ingest chunk of 8, one per search
+    # of the served (flushed) index
+    remembered = sum(len(st["body"]["memories"]) if st["label"] == "batch" else 1
+                     for st in script if st["label"] in ("batch", "remember"))
+    device_searches = sum(1 for b, pending in card["searches"] if not pending)
+    k1 = card.get("launches", {}).get("groupmax", 0)
+    if expect_k1 and (k1 < remembered // 8 or k1 < device_searches
+                      or card["launches"]["v3_pass1"] or card["launches"]["v4_pass1"]):
+        raise AssertionError(f"server: K1 launched {k1} times for {remembered} memories and "
+                             f"{device_searches} searches ({card['launches']})")
+
+    def ms_of(label):
+        return [r["ms"] for r in card["replies"] if r["label"].split(":")[0] == label]
+
+    batch_ms = ms_of("batch")
+    rec.update({
+        "open_s": card["open_s"], "memories_before": card["memories_before"],
+        "memories_after": card["memories_after"], "index_rows_before": card["index_rows_before"],
+        "remember_ms": _ms(ms_of("remember")), "batch_ms": _ms(batch_ms),
+        "batch_memories_per_s": SYSTEM_CALL * len(batch_ms) / (sum(batch_ms) / 1e3),
+        "recall_ms": _ms(ms_of("recall")), "staged_ms": _ms(ms_of("staged")),
+        "staged_ms_by_shape": {r["label"][7:]: r["ms"] for r in card["replies"]
+                               if r["label"].startswith("staged:")},
+        "proactive_ms": _ms(ms_of("proactive")),
+        "concurrency": card.get("concurrency"),
+        "tour_requests": len(card["tour"]),
+        "tour_status": dict(Counter(str(r["status"]) for r in card["tour"])),
+        "tour_s": card["tour_s"], "k1_launches": k1, "launches": card.get("launches"),
+        "remembered": remembered, "index_searches": len(card["searches"]),
+        "device_searches": device_searches,
+        "search_batch_sizes": dict(Counter(str(b) for b, _ in card["searches"])),
+        "twin_checked": dict(checked), "stop_s": card["stop_s"], "card_side_s": card["side_s"],
+        "twin_side_s": twin["side_s"], "twin_open_s": twin["open_s"], "cli_serve": cli,
+        "phase_s": time.perf_counter() - t_phase})
+    if rec["tour_status"].get("500"):
+        raise AssertionError("server: the route tour met a 500")
+    return rec
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2733,6 +3252,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the shodh_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
+
+    if set(STAGED_SHAPES[:STAGED_RECALLS_CARD]) | set(SERVER_STAGED) != set(STAGED_SHAPES):
+        raise AssertionError("phases 8 and 10 leave a staged shape off the card")
 
     # Phase 0: card and build
     card = card_line()
@@ -2793,7 +3315,10 @@ def main() -> int:
     emit({**rec_minilm, "card": card})
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as data_dir:
+        # the store of phases 6-8 lies where the server serves it as a user
+        tmp = os.path.join(data_dir, "users", SERVER_USER)
+        os.makedirs(tmp)
         reset_launches()
         rec_engine, holder, engines = phase_engine(tmp)
         rec_engine["launches"] = read_launches()  # none of K1-K3 lies on this path
@@ -2813,9 +3338,16 @@ def main() -> int:
         # would run beside them
         with tempfile.TemporaryDirectory() as ev:
             emit({**phase_eval(ev), "card": card})
-        with tempfile.TemporaryDirectory() as work:
-            rec_system = phase_system(tmp, work)
-        emit(rec_system)
+        with tempfile.TemporaryDirectory() as work, tempfile.TemporaryDirectory() as swork:
+            # the server phase's CPU twin replays its script over a copy of
+            # phase 8's final store beside phase 8's own twin, both off the card's clocks
+            server_twin = ServerTwin(data_dir, swork)
+            rec_system = phase_system(tmp, work, n_calls=SYSTEM_RECALLS_CARD,
+                                      n_staged=STAGED_RECALLS_CARD, after_card=server_twin.start)
+            emit(rec_system)
+            torch.cuda.empty_cache()
+            rec_server = phase_server(data_dir, swork, twin=server_twin)
+        emit({**rec_server, "card": card})
     torch.cuda.empty_cache()
     emit({"phase": "total", "script_s": time.perf_counter() - _START})
 
@@ -2835,6 +3367,7 @@ def main() -> int:
          "minilm_b256_library_ms": rec_minilm["k1_b256"]["library_ms"],
          "minilm_b256_plain_ms": rec_minilm["k1_b256"]["plain_ms"],
          "system_launches": rec_system["launches"]["groupmax"],
+         "server_launches": rec_server["k1_launches"],
          "staged_launches": rec_system["staged_launches"]["groupmax"],
          "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],
          "b8_bound_ms": rec_system["k1_b8"]["bound_ms"],

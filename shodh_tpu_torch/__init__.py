@@ -22,6 +22,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"  # the JAX package's: the server reports it
+
+__all__ = ["__version__", "resolve_device"]
 
 from shodh_tpu_torch.device import resolve_device  # noqa: E402

@@ -1,7 +1,13 @@
-"""Command line of the port (port of the ``eval`` subcommand of
-``shodh_tpu/cli.py``).
+"""Command line of the port (port of the ``serve`` and ``eval`` subcommands
+of ``shodh_tpu/cli.py``).
 
+    python -m shodh_tpu_torch.cli serve [--port 8900] [--data-dir DIR] [--device cpu | --cpu]
     python -m shodh_tpu_torch.cli eval --suite smoke [--device cpu] [--dump out.json]
+
+``serve`` runs the HTTP API (``server/app.py``) over a multi-user manager
+whose engines live on the card; ``--device cpu`` (or ``--cpu``) asks for the
+CPU, and without either a host with no GPU raises. SIGINT or SIGTERM saves
+and closes every open user and exits 0.
 
 ``eval`` runs the recall-quality harness: a fresh ``MemorySystem`` ingests
 the suite's corpus, every case is recalled under each mode of ``--layers``,
@@ -34,6 +40,17 @@ def main(argv: list[str] | None = None) -> int:
                                 description="the PyTorch/CUDA port of shodh-tpu")
     sub = p.add_subparsers(dest="cmd")
 
+    s = sub.add_parser("serve", help="run the HTTP server")
+    s.add_argument("--data-dir", default="~/.shodh-tpu")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8900)
+    s.add_argument("--ipc", default="", metavar="SOCKET",
+                   help="local IPC socket path (default: <data-dir>/shodh.sock; "
+                        "SHODH_IPC_ENABLED=false disables)")
+    s.add_argument("--device", default=None,
+                   help="torch device of every user's engine (default: the CUDA card; 'cpu')")
+    s.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+
     e = sub.add_parser("eval", help="run the recall-quality harness")
     e.add_argument(
         "--suite",
@@ -52,6 +69,17 @@ def main(argv: list[str] | None = None) -> int:
                    help="torch device of the system (default: the CUDA card; 'cpu')")
 
     args = p.parse_args(argv)
+
+    if args.cmd == "serve":
+        from shodh_tpu_torch.device import resolve_device
+        from shodh_tpu_torch.server.app import run_server
+
+        if args.cpu and args.device not in (None, "cpu"):
+            p.error("--cpu contradicts --device " + args.device)
+        device = resolve_device("cpu" if args.cpu else args.device)  # raises without a GPU
+        run_server(data_dir=args.data_dir, host=args.host, port=args.port,
+                   ipc_path=args.ipc, device=device)
+        return 0
 
     if args.cmd == "eval":
         from shodh_tpu_torch.engine.memory_system import MemorySystem

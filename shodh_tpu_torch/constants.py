@@ -443,3 +443,9 @@ PROSPECTIVE_BOOST_MAX = 0.75
 HEBBIAN_BOOST_HELPFUL = 0.025
 HEBBIAN_DECAY_MISLEADING = 0.10
 EMOTIONAL_DECAY_MODULATION = 0.3
+
+# Memory compression's policy (engine/compression.py)
+COMPRESSION_IMPORTANCE_HIGH = 0.8
+COMPRESSION_IMPORTANCE_LOW = 0.5
+COMPRESSION_AGE_DAYS = 30
+COMPRESSION_ACCESS_THRESHOLD = 10

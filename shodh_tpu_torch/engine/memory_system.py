@@ -993,6 +993,10 @@ class MemorySystem:
             self.graph.flush()
         self.adapt_semantics()
 
+    def _base_embedder(self):
+        """The embedder under its cache (the server's semantics routes read it)."""
+        return semantics.base_embedder(self)
+
     @_locked
     def adapt_semantics(self, force: bool = False) -> bool:
         """Refit the corpus semantic model (``engine/semantics.py``)."""

@@ -99,9 +99,24 @@ PORT_MODULES = [
     "shodh_tpu_torch.nlp.entity_type",
     "shodh_tpu_torch.nlp.dep_parser",
     "shodh_tpu_torch.nlp.learned_parser",
+    "shodh_tpu_torch.storage.backup",
+    "shodh_tpu_torch.storage.migration",
+    "shodh_tpu_torch.engine.relevance",
+    "shodh_tpu_torch.engine.visualization",
+    "shodh_tpu_torch.engine.compression",
+    "shodh_tpu_torch.nlp.entity_resolution",
+    "shodh_tpu_torch.server.web",
+    "shodh_tpu_torch.server.metrics",
+    "shodh_tpu_torch.server.validation",
+    "shodh_tpu_torch.server.state",
+    "shodh_tpu_torch.server.telemetry",
+    "shodh_tpu_torch.server.dashboard",
+    "shodh_tpu_torch.server.app",
+    "shodh_tpu_torch.server.local_ipc",
+    "tools.server_tour",
     "chip_smoke",
 ]
-_ABSENT = ("jax", "shodh_tpu", "msgpack")  # never imported by a port process
+_ABSENT = ("jax", "shodh_tpu", "msgpack", "aiohttp")  # never imported by a port process
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+shodh_tpu(\.|\s*$|\s*,|\s+as\b)"
     r"|from\s+shodh_tpu(\.|\s+import\b))",
@@ -112,7 +127,8 @@ _FORBIDDEN = re.compile(
 def _port_sources():
     files = sorted((ROOT / "shodh_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_search.py",
-        ROOT / "tools" / "torch_legs_ab.py", ROOT / "tools" / "torch_ingest_ab.py"]
+        ROOT / "tools" / "torch_legs_ab.py", ROOT / "tools" / "torch_ingest_ab.py",
+        ROOT / "tools" / "server_tour.py"]
     assert len(files) >= 10
     return files
 
@@ -125,7 +141,8 @@ def test_every_port_module_is_listed():
     assert found - subpackages - {"shodh_tpu_torch"} <= set(PORT_MODULES)
     assert {"shodh_tpu_torch.storage", "shodh_tpu_torch.engine", "shodh_tpu_torch.nlp",
             "shodh_tpu_torch.models", "shodh_tpu_torch.utils", "shodh_tpu_torch.graph",
-            "shodh_tpu_torch.retrieval", "shodh_tpu_torch.harness"} <= subpackages
+            "shodh_tpu_torch.retrieval", "shodh_tpu_torch.harness",
+            "shodh_tpu_torch.server"} <= subpackages
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -141,6 +158,28 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
+
+
+def test_server_app_alone_imports_neither_jax_nor_aiohttp():
+    """A fresh process that imports the port's server (as ``cli serve`` does)."""
+    code = ("import sys\n"
+            "import shodh_tpu_torch.server.app, shodh_tpu_torch.server.local_ipc\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_ABSENT!r})\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+_AIOHTTP = re.compile(r"^\s*(import|from)\s+aiohttp\b", re.M)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_port_source_has_no_aiohttp_import(path):
+    assert not _AIOHTTP.findall(path.read_text()), path
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
