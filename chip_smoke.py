@@ -50,7 +50,8 @@ Phases, each printing one JSON line:
    index; then the store's corpus semantic model (``adapt_semantics``, the
    newest 20,000 texts), its temporal facts and one distillation of facts
    over its newest memories, each timed;
-7. ``legs``: 48 ``device_funnel_recall`` calls over the same store,
+7. ``legs``: 24 ``device_funnel_recall`` calls over the same store
+   (``LEGS_CALLS_CARD``; 48 by default),
    readonly (query analysis, the graph leg through ``DeviceSpreader`` on the
    card, the BM25 leg through the native scorer with its semantic
    expansion, the pool program, and the host epilogue: PRF, the boost stack,
@@ -69,7 +70,7 @@ Phases, each printing one JSON line:
    interference through K1's batched search, replay, lineage), the host
    seconds of each ``remember`` step, K1's launches; the stores compared kv
    row by kv row, the index's host arrays and the row mirrors' incremental
-   fill held to a full build; 24 plain recalls with usage writes held to the
+   fill held to a full build; 12 plain recalls with usage writes held to the
    twin's (``SYSTEM_RECALLS_CARD``; 48 by default); 8 staged recalls
    (``STAGED_RECALLS_CARD``: the first eight of ``STAGED_SHAPES``; 16 by
    default, one of each of: filters, the rungs of the
@@ -93,24 +94,42 @@ Phases, each printing one JSON line:
     ``server/web.py``) in this process on the card, over phase 8's store as
     user ``agent`` under the data directory, bound to 127.0.0.1:0 with the
     rate limiter lifted, driven over a real socket: ``/health``, the open
-    (timed), ``/health/index``, 24 plain recalls (usage writes), 8 staged
+    (timed), ``/health/index``, 16 plain recalls (usage writes), 8 staged
     recalls of the shapes phase 8's cut leaves out (``SERVER_STAGED``: the
     two phases together run every one of ``STAGED_SHAPES`` on the card; the
     scoring A/B through ``/api/ab/tests``), 512
     turns by ``/api/batch_remember`` in calls of 64 and 32 by
     ``/api/remember`` with their ``created_at``, 16 ``/api/proactive_context``,
     a remember and a recall over the IPC socket (after its HMAC handshake)
-    held to the same two over HTTP, the route tour (``tools/server_tour.py``: one
-    request to every route, for a user of its own), 8 readonly recalls of
-    the served user one after another and then from 8 threads at once (a
-    smoke reading of requests/s, not a throughput: one user's recalls queue
-    on its engine's lock); K1's launches on the served path (one per ingest
-    chunk of 8 and per search of the served index); the server stops as
+    held to the same two over HTTP, one ``/api/stream`` WebSocket session of
+    64 turns (three buffer-full flushes, then a manual one; ack and flush
+    times, memories/s, K1's launches on its path counted apart), one
+    ``/api/context/monitor`` session that carries a remember's event, the
+    route tour (``tools/server_tour.py``: one request to every one of the 256
+    method-and-path pairs, the WebSocket ones through a session, signed
+    webhooks, a canned pull-sync fetcher, MIF, fsck, for users of its own), 4
+    readonly recalls of the served user one after another and then from 4
+    threads at once (a smoke reading of requests/s, not a throughput: one
+    user's recalls queue on its engine's lock), a remember and a recall from
+    a robot peer of the fleet mesh (``SHODH_FLEET_LISTEN``) held to HTTP's;
+    K1's launches on the served path (one per ingest chunk of 8 and per
+    search of the served index); the read replica, ``python -m
+    shodh_tpu_torch.cli replica`` on the card in a process of its own,
+    started before the open, follows the writer's session (its open, its lag
+    during the batch calls, its catch-up) to lag 0 and the writer's index
+    length after the writer's last flush, then exits 0 on SIGINT; a second
+    replica opened over the quiet store answers 16 recalls, asked side by
+    side with the served user's readonly answers at one pinned clock and
+    equal to them, then exits 0 on SIGINT (R21); the server stops as
     SIGINT would; a CPU twin replays the same requests in a process of its
-    own over a copy taken first, and every reply must equal it; then
-    ``python -m shodh_tpu_torch.cli serve`` on the card over the stopped
-    store answers ``/health``, reopens the user without healing and exits 0
-    on SIGINT;
+    own over a copy taken first, and every reply and the stream's stored
+    memories must equal it; then three processes at once over the stopped
+    store: ``python -m shodh_tpu_torch.cli serve`` on the card answers
+    ``/health``, reopens the user without healing and exits 0 on SIGINT;
+    ``cli fsck`` on the card says the served store is ok; ``cli fsck
+    --repair`` on the card repairs a copy of the tour's MIF user with a lost
+    row-map entry (a fresh text index on the card) and reports as the twin's
+    repair does;
 11. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
@@ -436,9 +455,12 @@ def _same_results(name, got, want_vals, want_rows, rtol=1e-5):
     np.testing.assert_allclose(vals, want_vals, rtol=rtol, atol=1e-6, err_msg=name)
 
 
-def ms_stats(seconds) -> dict:
-    """Mean and spread, in ms, of per-call host-clock times."""
+def ms_stats(seconds, name: str) -> dict:
+    """Mean and spread, in ms, of per-call host-clock times; an empty list
+    raises, naming the list (``name``)."""
     ms = np.asarray(seconds, dtype=np.float64) * 1e3
+    if ms.size == 0:
+        raise AssertionError(f"{name}: no timings (an empty list)")
     return {"mean": float(ms.mean()), "std": float(ms.std()), "min": float(ms.min()),
             "p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99)),
             "max": float(ms.max()), "calls": int(ms.size)}
@@ -455,7 +477,7 @@ def _search_timing(index, batches, k, device, reps: int = 8) -> dict:
             t0 = time.perf_counter()
             index.search(q, k)
             times.append(time.perf_counter() - t0)
-    stats = ms_stats(times)
+    stats = ms_stats(times, "search_ms")
     return {"ms_per_batch": stats["mean"], "qps": len(batches[0]) / stats["mean"] * 1e3,
             "ms_spread": stats}
 
@@ -654,7 +676,7 @@ def phase_pool(index, seed, k=256, vec_k=60, n_queries=4, n_timed=300, device="c
             t0 = time.perf_counter()
             [x.cpu() for x in run_pool(timed[i:i + 1], *on_dev, k, vec_k)]
             times.append(time.perf_counter() - t0)
-        stats = ms_stats(times)
+        stats = ms_stats(times, "pool_ms")
         record["ms_per_query"] = stats["mean"]
         record["ms_spread"] = stats
     return record
@@ -733,7 +755,7 @@ def phase_recall_batch(index, seed, k=10, checks=((32, ("cpu",)), (256, ("cpu", 
                 t0 = time.perf_counter()
                 [x.cpu() for x in run_batch(fused_recall_batch, q, hits, *on_dev, k)]
                 times.append(time.perf_counter() - t0)
-            stats = ms_stats(times)
+            stats = ms_stats(times, f"recall_batch_b{bq}_ms")
             record.update(ms_per_batch=stats["mean"], qps=bq / stats["mean"] * 1e3,
                           ms_spread=stats)
         records.append(record)
@@ -1312,16 +1334,17 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
         for name, calls in forms.items():
             engine.recall_pool(*calls[-1][0], **calls[-1][1])  # warm
             times = _timed(lambda c: engine.recall_pool(*c[0], **c[1]), calls[:n_timed])
-            rec[f"{name}_ms"] = ms_stats(times)
+            rec[f"{name}_ms"] = ms_stats(times, f"{name}_ms")
         engine.recall(texts[-1], ENGINE_K, now)
         rec["recall_ms"] = ms_stats(_timed(lambda t: engine.recall(t, ENGINE_K, now),
-                                           texts[:n_recall_timed]))
+                                           texts[:n_recall_timed]), "recall_ms")
         # one warm-up batch at the smallest size: with real legs a batch is
         # mostly host work per query, and a B=256 warm-up costs tens of seconds
         engine.recall_batch(texts[:min(batches)], ENGINE_K, now)
         for b in batches:
             groups = [texts[i * b:(i + 1) * b] for i in range(ENGINE_BATCH_GROUPS)]
-            stats = ms_stats(_timed(lambda g: engine.recall_batch(g, ENGINE_K, now), groups))
+            stats = ms_stats(_timed(lambda g: engine.recall_batch(g, ENGINE_K, now), groups),
+                             f"recall_batch_b{b}_ms")
             rec[f"recall_batch_b{b}_ms"] = stats
             rec[f"recall_batch_b{b}_ms_per_query"] = stats["mean"] / b
 
@@ -1362,6 +1385,10 @@ def phase_engine(root, device="cuda", n=ENGINE_MEMORIES, n_more=ENGINE_MORE,
 # 50,000 memories at this store size), which the epilogue then loads and
 # scores, once on the card's pool and once on the CPU copy's
 LEGS_CALLS = 48
+# main's depth of phase 7 on the card, cut from 48 to make room for the
+# server phase's stream, replica, fsck and fleet checks (the six shapes cycle:
+# 4 calls of each)
+LEGS_CALLS_CARD = 24
 # The store's memory cache (``SHODH_MEM_CACHE_CAP``) sized to hold the whole
 # store, as a server holding it would: those PRF candidate loads then hit it
 STORE_CACHE_CAP = 1 << 17
@@ -1633,9 +1660,11 @@ SYSTEM_SEED = 8191  # the session ids' seeded sequence
 # Plain recalls with usage writes, 8 of each leg shape
 SYSTEM_RECALLS = 48
 # main's depth of phase 8 on the card, cut from 48 plain and 16 staged recalls
-# to make room for the server phase (which drives 24 plain and 8 more staged
-# shapes over the same store through the HTTP API)
-SYSTEM_RECALLS_CARD, STAGED_RECALLS_CARD = 24, 8
+# to make room for the server phase (which drives 16 plain and 8 more staged
+# shapes over the same store through the HTTP API, and 16 more on its read
+# replica); 24 plain until the server phase took the replica and the stream
+# (2 of each legs shape now)
+SYSTEM_RECALLS_CARD, STAGED_RECALLS_CARD = 12, 8
 DBS = ("memories.db", "bm25/bm25.db", "graph/graph.db")  # a store's kv databases
 PIVOTS = ("we should pivot to a new strategy for the", "time to start fresh with the",
           "scrap this plan, a complete rewrite of the")
@@ -1933,12 +1962,10 @@ MAINTENANCE_STEPS = (("enrich", "", "enrich_pending"), ("semantics", "", "adapt_
                      ("compact", "index", "maybe_compact"), ("graph_flush", "graph", "flush"))
 
 
-def staged_call(system, shape: str, text: str, j: int, now):
-    """One staged recall of ``shape`` on ``text`` at ``now`` (the clock is
-    pinned by the caller): returns the result."""
+def staged_query(system, shape: str, text: str, j: int, now) -> tuple[dict, dict]:
+    """The recall body (a ``Query`` dict) of a staged recall of ``shape`` on
+    ``text`` at ``now``, and the env knobs it runs under."""
     from datetime import timedelta
-
-    from shodh_tpu_torch.engine.ab_testing import Experiment, VariantStats
 
     q = {"query_text": text, "max_results": ENGINE_K}
     knobs = {}
@@ -1964,6 +1991,15 @@ def staged_call(system, shape: str, text: str, j: int, now):
         q["query_text"] = f"which {WORDS[j % len(WORDS)]}s has {text}"
     elif shape == "filter_only":
         q = {"tags": [TAGS[j % len(TAGS)]], "max_results": ENGINE_K}
+    return q, knobs
+
+
+def staged_call(system, shape: str, text: str, j: int, now):
+    """One staged recall of ``shape`` on ``text`` at ``now`` (the clock is
+    pinned by the caller): returns the result."""
+    from shodh_tpu_torch.engine.ab_testing import Experiment, VariantStats
+
+    q, knobs = staged_query(system, shape, text, j, now)
     with env(**knobs):
         if shape == "diagnostics":
             return system.recall_with_diagnostics(q)
@@ -2147,7 +2183,8 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
         rec["recall_launches"] = read_launches()
         # the launches of the phase's main path: the ingest and the recalls
         rec["launches"] = {name: c + launches[name] for name, c in rec["recall_launches"].items()}
-    rec["recall_ms"] = {key: ms_stats(np.asarray(v) / 1e3) for key, v in stages.items() if v}
+    rec["recall_ms"] = {key: ms_stats(np.asarray(v) / 1e3, f"recall_ms.{key}")
+                        for key, v in stages.items() if v}
     rec["texts"], rec["answers"] = texts, answers
 
     # staged recalls with usage writes, cycling the shapes; the index
@@ -2178,7 +2215,7 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
     finally:
         pin_now(None)
         del system.index.search
-    rec["staged_ms"] = ms_stats(np.asarray(staged["call_ms"]) / 1e3)
+    rec["staged_ms"] = ms_stats(np.asarray(staged["call_ms"]) / 1e3, "staged_ms")
     rec["staged_ms_by_shape"] = {sh: float(np.mean(v)) for sh, v in staged["by_shape"].items()}
     rec["staged_searches"] = {"flushed": searches[0], "pending": searches[1]}
     rec["staged_texts"], rec["staged_answers"] = staged_texts, staged["answers"]
@@ -2750,7 +2787,7 @@ def phase_minilm(work, device="cuda", n=ENGINE_MEMORIES, n_more=MINILM_MORE,
 
 SERVER_USER = "agent"  # phases 6-8's store, served from data_dir/users/agent
 SERVER_KEY = "chip-smoke-key"
-SERVER_RECALLS = 24  # plain recalls, the legs shapes, usage writes on
+SERVER_RECALLS = 16  # plain recalls, the legs shapes, usage writes on (24 before the replica)
 # the staged shapes that phase 8's cut depth (its first eight shapes) leaves
 # out, each asked for by a request body or an env knob; "scoring_ab" is a
 # scoring:fusion experiment created, started, recalled under and paused
@@ -2762,9 +2799,24 @@ SCORING_AB = {"name": "scoring:fusion",
 SERVER_BATCH = 512  # conversation turns in batch_remember calls of SYSTEM_CALL
 SERVER_SINGLE = 32  # then one by one through /api/remember, created_at given
 SERVER_PROACTIVE = 16
-SERVER_CONCURRENT = 8  # readonly recalls, one after another, then from 8 threads at once
+# readonly recalls, one after another, then from as many threads at once (8
+# before the server phase took the replica and the stream)
+SERVER_CONCURRENT = 4
 SERVER_SEED = 12289
 SERVER_TWIN_THREADS = 4
+# one /api/stream session of conversation turns: FLUSH_EVENTS (20) fills the
+# buffer three times, then a manual flush drains the last four
+STREAM_MESSAGES = 64
+# the read replica (``cli replica``, a process of its own over the served
+# user's store): its refresh cadence (the follower reloads its graph every
+# REPLICA_GRAPH_EVERY refreshes) and the recalls held to the served user's,
+# half the legs' plain shapes, half staged shapes a Query body can ask for
+REPLICA_REFRESH_S = 0.5
+REPLICA_GRAPH_EVERY = 8  # FollowerReader's default graph_refresh_every
+REPLICA_RECALLS = 16
+REPLICA_STAGED = ("tags", "vector_only", "+spreading", "+bm25", "+rerank", "+facts", "offset",
+                  "time_types")
+REPLICA_WAIT_S = 600.0  # the most the replica may take to open or to catch up
 
 
 class SeededUuid4:
@@ -2778,7 +2830,9 @@ class SeededUuid4:
 
     def __call__(self):
         caller = sys._getframe(1).f_globals.get("__name__", "")
-        if not caller.startswith("shodh_tpu_torch"):
+        # the fleet mesh's peer and frame ids are the transport's own: its
+        # heartbeat thread draws them at times of its own, and no reply holds one
+        if not caller.startswith("shodh_tpu_torch") or caller.endswith(".fleet_net"):
             return self.real()
         return uuid.UUID(bytes=self.rng.bytes(16), version=4)
 
@@ -2812,15 +2866,18 @@ def _staged_body(shape: str, text: str, j: int, now) -> tuple[dict, dict]:
 
 def server_script(system, seed: int = SERVER_SEED, n_recalls: int = SERVER_RECALLS,
                   staged=SERVER_STAGED, n_batch: int = SERVER_BATCH,
-                  n_single: int = SERVER_SINGLE, n_proactive: int = SERVER_PROACTIVE) -> list:
+                  n_single: int = SERVER_SINGLE, n_proactive: int = SERVER_PROACTIVE,
+                  n_stream: int = STREAM_MESSAGES) -> list:
     """The server phase's requests to the served user, in order, each with the
     time its clock is pinned to (``now``), its env knobs and its transport:
     plain recalls, staged recalls (a scoring A/B's among them, between the
     requests that create, start and pause it; ``{ab}`` in a path is the
     created experiment's id), ``batch_remember`` calls of 64 turns (5-40
     minutes apart), turns one by one through ``/api/remember`` with their
-    ``created_at``, proactive context, then one remember and one recall over
-    the local IPC socket and the same two over HTTP for another user."""
+    ``created_at``, proactive context, one remember and one recall over the
+    local IPC socket and the same two over HTTP for another user, then one
+    ``/api/stream`` session of ``n_stream`` turns and a manual flush, and one
+    ``/api/context/monitor`` session that reads the event of a remember."""
     from datetime import timedelta
 
     from shodh_tpu_torch.retrieval.bm25 import tokenize
@@ -2873,24 +2930,438 @@ def server_script(system, seed: int = SERVER_SEED, n_recalls: int = SERVER_RECAL
              headers={"X-User-ID": uid}, via=via)
         step(f"{via}_recall", "POST", "/api/recall", query, at=after,
              headers={"X-User-ID": uid}, via=via)
+    turns = [e.content for _, batch in system_calls(n_stream, seed + 3, stored, after)
+             for e in batch][:n_stream]
+    step("stream", "GET", "/api/stream",
+         [{"type": "message", "content": t, "role": "user"} for t in turns] + [{"type": "flush"}],
+         at=after, via="ws")
+    step("monitor", "GET", "/api/context/monitor",
+         {"content": "the context monitor carries this remember", "tags": ["monitor"],
+          "created_at": after.isoformat()}, at=after, via="ws")
     return script
+
+
+def stream_session(port: int, path: str, headers: dict, messages: list) -> tuple:
+    """One ``/api/stream`` session of ``messages`` through the tour's client:
+    (status, every reply and the close, timings). Each ack is timed from its
+    message; a flush from the ack of the message that filled the buffer, or
+    from the manual flush, to its ``flushed`` reply."""
+    from tools import server_tour as tour
+
+    ws = tour.WsClient("127.0.0.1", port, path, headers, timeout=600)
+    if ws.status != 101:
+        return ws.status, ws.body, {}
+    out, ack_ms, flush_ms, flushed = [], [], [], 0
+    try:
+        for frame, n_replies in tour.stream_frames(messages):
+            t0 = time.perf_counter()
+            ws.send_json(frame)
+            for _ in range(n_replies):
+                msg = ws.recv_json()
+                t1 = time.perf_counter()
+                if msg.get("type") == "flushed":
+                    flush_ms.append((t1 - t0) * 1e3)
+                    flushed += len(msg["memory_ids"])
+                else:
+                    ack_ms.append((t1 - t0) * 1e3)
+                t0 = t1
+                out.append(msg)
+    finally:
+        code = ws.close()
+    return 101, out + [{"close": code}], {"ack_ms": ack_ms, "flush_ms": flush_ms,
+                                          "flushed_memories": flushed}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ReplicaProcess:
+    """``python -m shodh_tpu_torch.cli replica`` over one user's store on
+    ``device``, in a process of its own, its scoring clock pinned to ``now``
+    (``SHODH_EVAL_NOW``) so that its answers compare with the writer's at the
+    same pinned clock. ``start()`` launches it; a thread then samples
+    ``/api/replica/status`` every 0.1 s (lag, indexed rows, refreshes);
+    ``follow()`` checks how it followed the writer and ``answers()`` holds
+    its answers to the writer's; each stops it with SIGINT."""
+
+    def __init__(self, store, device, work, now):
+        from pathlib import Path
+
+        self.store, self.device, self.now = Path(store), device, now
+        self.work = Path(work)
+        self.port = _free_port()
+        self.samples: list = []  # (seconds since start, lag, indexed_rows, refreshes)
+        self._stop = None
+
+    def start(self) -> None:
+        import threading
+
+        args = [sys.executable, "-m", "shodh_tpu_torch.cli", "replica", "--data-dir",
+                str(self.store), "--port", str(self.port), "--refresh-secs",
+                str(REPLICA_REFRESH_S)]
+        if str(self.device) == "cpu":
+            args.append("--cpu")
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.work.mkdir(parents=True, exist_ok=True)
+        self.out = open(self.work / "replica.out", "w")
+        self.err = open(self.work / "replica.err", "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(args, cwd=root, stdout=self.out, stderr=self.err,
+                                     env={**os.environ, "SHODH_API_KEYS": SERVER_KEY,
+                                          "SHODH_EVAL_NOW": self.now.isoformat()})
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self) -> None:
+        from tools import server_tour as tour
+
+        client = tour.HttpClient(f"http://127.0.0.1:{self.port}", timeout=30)
+        hdrs = {"X-API-Key": SERVER_KEY}
+        while not self._stop.is_set():
+            try:
+                if not hasattr(self, "open_s"):
+                    status, _ = client.request("GET", "/health")
+                    if status == 200:
+                        self.open_s = time.perf_counter() - self.t0
+                else:
+                    status, body = client.request("GET", "/api/replica/status", None, hdrs)
+                    if status == 200:
+                        self.samples.append((time.perf_counter() - self.t0, body["lag"],
+                                             body["indexed_rows"], body["refreshes"]))
+            except OSError:
+                client.close()
+                if self.proc.poll() is not None:
+                    return
+            self._stop.wait(0.1)
+        client.close()
+
+    def _wait(self, what: str, ok) -> tuple:
+        deadline = time.perf_counter() + REPLICA_WAIT_S
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"replica: exited {self.proc.returncode} waiting for "
+                                     f"{what}: {(self.work / 'replica.err').read_text()[-2000:]}")
+            if self.samples and ok(self.samples[-1]):
+                return self.samples[-1]
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"replica: no {what} within {REPLICA_WAIT_S} s "
+                                     f"(last status {self.samples[-1:]})")
+            time.sleep(0.05)
+
+    def follow(self, system, client, headers: dict, batch_spans: list) -> dict:
+        """The replica that followed the writer's session: its open, its lag
+        during the batch calls and its catch-up after them; then a marker
+        remembered by ``/api/batch_remember`` (the seq entry commits with the
+        BM25 doc and the graph, R21) and a flush of the writer, the
+        replica's catch-up to lag 0 with the writer's index length, and a
+        graph reload past the flush; then SIGINT, which must exit 0."""
+        rec = {"open_s": getattr(self, "open_s", None)}
+        self._wait("status", lambda s: True)
+        first = self.samples[0]  # the replica's index as it opened
+        if batch_spans:
+            begin, last = batch_spans[0][0] - self.t0, batch_spans[-1][1] - self.t0
+            window = [s for s in self.samples if begin <= s[0] <= last]
+            rec["lag_during_ingest"] = {"max": max((s[1] for s in window), default=None),
+                                        "samples": len(window)}
+            caught = next((s for s in self.samples if s[0] > last and s[1] == 0), None)
+            if caught is None:
+                caught = self._wait("catch-up", lambda s: s[1] == 0)
+            rec["catch_up_s"] = caught[0] - last
+            rec["catch_up_rows"] = caught[2]
+        from shodh_tpu_torch.utils.clock import pin_now
+
+        pin_now(self.now)
+        try:
+            status, body = client.request(
+                "POST", "/api/batch_remember",
+                {"memories": [{"content": "the replica follows this last remember",
+                               "created_at": self.now.isoformat()}]}, headers)
+        finally:
+            pin_now(None)
+        if status != 200:
+            raise AssertionError(f"replica: the marker remember answered {status}: {body}")
+        t0 = time.perf_counter()
+        system.flush()
+        rows = len(system.index)
+        done = self._wait("the writer's last flush", lambda s: s[1] == 0 and s[2] == rows)
+        rec["marker_catch_up_s"] = time.perf_counter() - t0
+        graph_at = done[3] + REPLICA_GRAPH_EVERY - done[3] % REPLICA_GRAPH_EVERY + 1
+        self._wait("a graph reload", lambda s: s[3] >= graph_at)
+        rec.update(indexed_rows=rows, writer_rows=len(system.index), rows_at_open=first[2],
+                   rows_applied=rows - first[2], refreshes=self.samples[-1][3])
+        self._stop.set()
+        self._thread.join()
+        # the times between the counter's steps (to the sampling's 0.1 s): a
+        # refresh and a sleep of REPLICA_REFRESH_S; the refresh that makes the
+        # count a multiple of REPLICA_GRAPH_EVERY then reloads the graph
+        steps_at = [(b[0], b[3]) for a, b in zip(self.samples, self.samples[1:])
+                    if b[3] == a[3] + 1]
+        steps = [(t2 - t1, n2) for (t1, n1), (t2, n2) in zip(steps_at, steps_at[1:])
+                 if n2 == n1 + 1]
+        plain = [d for d, n in steps if (n - 1) % REPLICA_GRAPH_EVERY]
+        reload = [d for d, n in steps if not (n - 1) % REPLICA_GRAPH_EVERY]
+        if plain and reload:
+            rec["graph_reload_s_est"] = float(np.median(reload) - np.median(plain))
+            rec["refresh_step_s"] = float(np.median(plain))
+        rec.update(self.stop())
+        return rec
+
+    def answers(self, system, texts: list, k: int = ENGINE_K) -> dict:
+        """``REPLICA_RECALLS`` bodies asked of this replica (opened over the
+        writer's store once the writer is quiet) beside the served user's
+        readonly answers to them at the same pinned clock: each must be equal
+        (ids in order, scores rtol 1e-5, atol 1e-7); then SIGINT, which must
+        exit 0. The writer's engine mirrors and the spreader's export are
+        rebuilt first, as a reopened store builds them: both hold state of
+        the time they were built (R10, R7)."""
+        from tools import server_tour as tour
+        from shodh_tpu_torch.utils.clock import pin_now
+
+        deadline = time.perf_counter() + REPLICA_WAIT_S
+        while not hasattr(self, "open_s"):
+            if self.proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"replica: did not open: "
+                                     f"{(self.work / 'replica.err').read_text()[-2000:]}")
+            time.sleep(0.05)
+        self._stop.set()
+        self._thread.join()
+        rec = {"open_s": self.open_s}
+        if system._device_funnel is not None:
+            system._device_funnel.invalidate()
+        if system.graph is not None:
+            system.graph._device_spreader_inst = None
+        shapes = ["plain"] * (REPLICA_RECALLS // 2) + list(REPLICA_STAGED)
+        bodies = []
+        for j, shape in enumerate(shapes[:REPLICA_RECALLS]):
+            text = texts[j % len(texts)]
+            if shape == "plain":
+                bodies.append({"query_text": text, "max_results": k})
+            else:
+                bodies.append(staged_query(system, shape, text, j, self.now)[0])
+        # the replica's recalls run in a thread beside the served user's (two
+        # processes, as a replica serves beside its writer)
+        replica_ms, served_ms, shapes_ms, answers = [], [], {}, []
+
+        def ask_replica():
+            replica = tour.HttpClient(f"http://127.0.0.1:{self.port}", timeout=600)
+            try:
+                for shape, body in zip(shapes, bodies):
+                    t0 = time.perf_counter()
+                    answers.append(replica.request("POST", "/api/recall", body,
+                                                   {"X-API-Key": SERVER_KEY}))
+                    replica_ms.append((time.perf_counter() - t0) * 1e3)
+                    shapes_ms.setdefault(shape, []).append(replica_ms[-1])
+            finally:
+                replica.close()
+
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            asked = pool.submit(ask_replica)
+            wants = []
+            try:
+                for body in bodies:
+                    pin_now(self.now)
+                    t0 = time.perf_counter()
+                    with env(SHODH_RECALL_READONLY="1"):
+                        wants.append(system.recall(dict(body)))
+                    served_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                pin_now(None)
+            asked.result()
+        for shape, body, (status, got), want in zip(shapes, bodies, answers, wants):
+            if status != 200:
+                raise AssertionError(f"replica: /api/recall answered {status}: {got}")
+            got_ids = [m["id"] for m in got["memories"]]
+            got_scores = [m["score"] for m in got["memories"]]
+            if got_ids != want.ids or tour.differences(
+                    got_scores, [m.score for m in want.memories]):
+                raise AssertionError(
+                    f"replica {shape} {body}: {got_ids} {got_scores} != the served user's "
+                    f"{want.ids} {[m.score for m in want.memories]}")
+        rec.update(recall_ms=_ms(replica_ms), recall_ms_after_first=_ms(replica_ms[1:]),
+                   first_recall_ms=replica_ms[0], served_readonly_ms=_ms(served_ms),
+                   served_first_ms=served_ms[0], answers_equal=len(bodies),
+                   shapes_ms={key: float(np.mean(v)) for key, v in shapes_ms.items()})
+        rec.update(self.stop())
+        return rec
+
+    def stop(self) -> dict:
+        """SIGINT; the replica must exit 0."""
+        import signal
+
+        if self._stop is not None:
+            self._stop.set()
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGINT)
+        code = self.proc.wait(timeout=120)
+        out = {"exit": code, "stop_s": time.perf_counter() - t0}
+        self.out.close()
+        self.err.close()
+        if code != 0:
+            raise AssertionError(f"replica: SIGINT exited {code}: "
+                                 f"{(self.work / 'replica.err').read_text()[-2000:]}")
+        return out
+
+    def kill(self) -> None:
+        """Kill it if it still runs (a check that failed before its stop)."""
+        if self._stop is not None:
+            self._stop.set()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _fleet_check(app, client, headers: dict, now, k: int = ENGINE_K) -> list:
+    """One remember and one recall of the served user from a robot peer of a
+    2-peer localhost mesh (``TcpMeshBus``) whose other peer is the server
+    (``SHODH_FLEET_LISTEN``): the recall, and the HTTP ``/api/recall`` of the
+    same query, readonly at the same pinned clock; their ids must be equal.
+    Returns the replies as the script's."""
+    import queue
+
+    from shodh_tpu_torch.server.fleet import KEY_PREFIX, FleetTransport, InProcessBus
+    from shodh_tpu_torch.server.fleet_net import TcpMeshBus
+    from shodh_tpu_torch.utils.clock import pin_now
+
+    served = app["fleet"]
+    robot = TcpMeshBus(peer_id="robot", connect=[served.bus.endpoint])
+    signer = FleetTransport(None, bus=InProcessBus(), auth_key=SERVER_KEY)
+    got: queue.Queue = queue.Queue()
+    user = headers["X-User-ID"]
+    for kind in ("remember/ack", "recall/result"):
+        robot.subscribe(f"{KEY_PREFIX}/{user}/{kind}",
+                        lambda key, payload: got.put((key, json.loads(payload))))
+    out = []
+    try:
+        deadline = time.perf_counter() + 60
+        while not robot.live_members(f"{KEY_PREFIX}/fleet/"):  # the server's link is up
+            if time.perf_counter() > deadline:
+                raise AssertionError("fleet: the served peer never announced itself")
+            time.sleep(0.05)
+        pin_now(now)
+        query = "what did the fleet robot report about the dock"
+        with env(SHODH_RECALL_READONLY="1"):
+            for label, kind, body in (
+                    ("fleet_remember", "remember",
+                     {"content": "the fleet robot reports the dock door sticks in the rain",
+                      "tags": ["fleet"]}),
+                    ("fleet_recall", "recall", {"query_text": query, "max_results": k})):
+                t0 = time.perf_counter()
+                robot.publish(f"{KEY_PREFIX}/{user}/{kind}", json.dumps(signer.sign(body)).encode())
+                _, reply = got.get(timeout=300)
+                out.append({"label": label, "status": 200, "body": reply,
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            t0 = time.perf_counter()
+            status, http = client.request("POST", "/api/recall", {"query": query, "max_results": k},
+                                          headers)
+            out.append({"label": "fleet_http_recall", "status": status, "body": http,
+                        "ms": (time.perf_counter() - t0) * 1e3})
+    finally:
+        pin_now(None)
+        robot.close()
+    mesh_ids = [m["id"] for m in out[1]["body"]["memories"]]
+    if status != 200 or mesh_ids != [m["id"] for m in http["memories"]] or not mesh_ids:
+        raise AssertionError(f"fleet: the mesh's recall {mesh_ids} differs from HTTP's "
+                             f"({status}, {[m.get('id') for m in http.get('memories', [])]})")
+    if mesh_ids[0] != out[0]["body"]["memory_id"]:
+        raise AssertionError("fleet: the recall does not lead with the mesh's remember")
+    return out
+
+
+def _fsck_cli(data_dir, user: str, device, repair: bool = False) -> dict:
+    """``python -m shodh_tpu_torch.cli fsck`` over one user's store on
+    ``device``: its exit code, its report, its seconds."""
+    args = [sys.executable, "-m", "shodh_tpu_torch.cli", "fsck", "--data-dir", str(data_dir),
+            "--user", user] + (["--repair"] if repair else [])
+    if str(device) == "cpu":
+        args.append("--cpu")
+    t0 = time.perf_counter()
+    res = subprocess.run(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=900)
+    try:
+        report = json.loads(res.stdout)
+    except json.JSONDecodeError:
+        raise AssertionError(f"fsck {user}: exit {res.returncode}, no report: "
+                             f"{res.stderr[-2000:]}") from None
+    return {"exit": res.returncode, "report": report, "s": time.perf_counter() - t0}
+
+
+def fsck_repair(data_dir, work, device, user: str = "tour-mif") -> dict:
+    """``cli fsck --repair`` on ``device`` over a copy of ``user``'s store
+    (the route tour's MIF user: the tour deletes its own user at its end)
+    with one damage that ``tests/test_fsck.py`` plants, a lost row-map entry
+    of its oldest memory (a damage the writer's open does not heal, as it
+    heals a stale lexical stamp): the repair replays every memory into a
+    fresh text index on ``device``, and must report ok."""
+    import shutil
+    from pathlib import Path
+
+    from shodh_tpu_torch.storage.store import NS_ROWMAP, MemoryStorage
+
+    copy = Path(work) / "fsck_copy"
+    shutil.copytree(Path(data_dir) / "users" / user, copy / "users" / user)
+    storage = MemoryStorage(copy / "users" / user)
+    mem = min(storage.iter_memories(), key=lambda m: (m.created_at, m.id))
+    row = storage.get_vector_map(mem.id)["text"][0]
+    storage.kv.write_batch([("del", NS_ROWMAP, f"text:{row}", None)])
+    storage.close()
+    out = _fsck_cli(copy, user, device, repair=True)
+    rep = out["report"]
+    if out["exit"] != 0 or not rep.get("ok") or not rep.get("repaired"):
+        raise AssertionError(f"fsck --repair {user}: exit {out['exit']}: {rep}")
+    return out
+
+
+def _ws_step(st: dict, port: int, headers: dict, client, rec: dict, card: bool,
+             searches: list) -> tuple:
+    """A WebSocket step of the server script: the monitor's session (the
+    event of one remember), or the stream's, with K1's launches and the
+    index searches counted for the stream alone (the script's are read
+    first)."""
+    from tools import server_tour as tour
+
+    if st["label"] == "monitor":
+        return tour.ws_session("127.0.0.1", port, st["path"], headers, [],
+                               lambda: client.request("POST", "/api/remember", st["body"],
+                                                      headers), expect=1)
+    if card:
+        rec["launches"] = read_launches()  # the script's, before the stream
+        reset_launches()
+    rec["script_searches"] = len(searches)
+    status, body, rec["stream"] = stream_session(port, st["path"], headers, st["body"])
+    if card:
+        rec["stream_launches"] = read_launches()
+    rec["stream_searches"] = searches[rec["script_searches"]:]
+    return status, body
 
 
 def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
                  n_concurrent: int = SERVER_CONCURRENT, sizes: dict | None = None) -> dict:
     """One side of the server phase: the port's server (``make_server``: the
-    manager on ``device``, the schedulers, the IPC socket under ``work``)
-    in this process on a loop of its own, bound to 127.0.0.1:0, driven over a
-    real socket: ``/health``, the request that opens the served user (timed),
-    ``/health/index``, the script that ``server_script(**sizes)`` builds from
-    the opened store, the route tour for user ``tour``, and on the card
-    8 readonly recalls at concurrency 1 and 8; then the server stops as SIGINT
-    would. Returns the script, every reply with its status and host ms, the
-    served index's searches, and on the card K1's launches on the script."""
-    from datetime import datetime
+    manager on ``device``, the schedulers, the IPC socket under ``work``, the
+    fleet mesh on 127.0.0.1) in this process on a loop of its own, bound to
+    127.0.0.1:0, driven over a real socket: ``/health``, the request that
+    opens the served user (timed), ``/health/index``, the script that
+    ``server_script(**sizes)`` builds from the opened store (its last steps
+    the ``/api/stream`` and ``/api/context/monitor`` sessions), the route
+    tour for user ``tour`` (the pull sync's fetcher canned), on the card 8
+    readonly recalls at concurrency 1 and 4, a remember and a recall over the
+    fleet mesh, and on the card the read replica (``ReplicaProcess``, started
+    before the open, so that it follows the writer's whole session) held to
+    the served user; then the server stops as SIGINT would, and the twin
+    repairs a damaged copy of the tour's MIF user with ``cli fsck``. Returns
+    the script, every reply with its status and host ms, the served index's
+    searches, and on the card K1's launches on the script and on the stream."""
+    from datetime import datetime, timedelta
     from pathlib import Path
 
     from shodh_tpu_torch.server import app as app_mod
+    from shodh_tpu_torch.server import integrations_sync
     from shodh_tpu_torch.server import web
     from tools import server_tour as tour
     from shodh_tpu_torch.server.local_ipc import LocalIpcClient
@@ -2903,19 +3374,31 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
     t_start = time.perf_counter()
     key = {"X-API-Key": SERVER_KEY}
     bucket, tick, uuid4 = app_mod._BUCKET, app_mod.REMINDER_INTERVAL_SECS, uuid.uuid4
+    fetch = integrations_sync.fetch_json
+    # the replica's and the fleet's answers are read at one pinned clock past
+    # every step of the script
+    compare_now = engine_now() + timedelta(days=4)
     rec: dict = {}
     with env(SHODH_API_KEYS=SERVER_KEY, SHODH_DEV_API_KEY=None, SHODH_TELEMETRY=None,
-             SHODH_IPC_PATH=None, SHODH_IPC_ENABLED=None):
+             SHODH_IPC_PATH=None, SHODH_IPC_ENABLED=None, SHODH_FLEET_LISTEN="127.0.0.1:0",
+             SHODH_FLEET_CONNECT=None, SHODH_FLEET_ID="served", SHODH_FLEET_KEY=SERVER_KEY,
+             SHODH_FLEET_AUTO_TOPICS=None):
         # the rate limiter lifted: 8 client threads and the tour from one address
         app_mod._BUCKET = app_mod.TokenBucket(rate_per_sec=1e9, burst=1e9)
         # no reminder fires on its own tick: GET /api/reminders/due answers
         # the same on both sides (R17)
         app_mod.REMINDER_INTERVAL_SECS = 1e9
         uuid.uuid4 = SeededUuid4(seed)
+        integrations_sync.fetch_json = tour.canned_fetch  # the tour's sync reaches no network
         sock = Path(work) / "shodh.sock"
         app = app_mod.make_server(str(data_dir), ipc_path=str(sock), device=device)
         server = web.BackgroundServer(app)
+        replica = None
         try:
+            if card:
+                replica = ReplicaProcess(Path(data_dir) / "users" / SERVER_USER, device, work,
+                                         compare_now)
+                replica.start()
             client = tour.HttpClient(f"http://127.0.0.1:{server.port}")
             ipc = LocalIpcClient(sock)
             status, _ = client.request("GET", "/health")
@@ -2943,7 +3426,7 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
             system.index.search = counted_search
             if card:
                 reset_launches()
-            saved = {}
+            saved, batch_spans = {}, []
             try:
                 for st in script:
                     pin_now(datetime.fromisoformat(st["now"]))
@@ -2956,8 +3439,13 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
                                      "body": st["body"], "user_id": st["headers"]["X-User-ID"]}
                             out = ipc.exchange([frame])[0]
                             status, body = out["status"], out["body"]
+                        elif st["via"] == "ws":
+                            status, body = _ws_step(st, server.port, hdrs, client, rec, card,
+                                                    searches)
                         else:
                             status, body = client.request(st["method"], path, st["body"], hdrs)
+                    if st["label"] == "batch":
+                        batch_spans.append((t0, time.perf_counter()))
                     if st["label"] == "ab_create":
                         saved["ab"] = body["experiment"]["id"]
                     replies.append({"label": st["label"], "status": status, "body": body,
@@ -2967,26 +3455,53 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
                 pin_now(None)
                 del system.index.search
             if card:
-                rec["launches"] = read_launches()
-            rec["searches"] = searches
+                rec.setdefault("launches", read_launches())
+            rec["searches"] = searches[:rec.get("script_searches", len(searches))]
             rec["replies"] = replies
             rec["memories_after"] = system.storage.count()
+            sessions = [r for r in replies if r["label"] == "stream"]
+            rec["stream_memories"] = [  # what the stream's flushes stored
+                system.storage.get(i).to_dict() for r in sessions for m in r["body"]
+                if m.get("type") == "flushed" for i in m["memory_ids"]]
             # the route tour, for a user of its own (a small store)
-            send, stream, tclient = tour.http_runner(f"http://127.0.0.1:{server.port}")
+            send, stream, ws, tclient = tour.http_runner(f"http://127.0.0.1:{server.port}")
             t0 = time.perf_counter()
             scan_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "shodh_tpu_torch", "data")  # the same on both sides
-            rec["tour"] = tour.run_tour(send, stream, pin_now, tour.steps(scan_dir), "tour", key)
+            rec["tour"] = tour.run_tour(send, stream, pin_now, tour.steps(scan_dir), "tour", key,
+                                        ws=ws)
             rec["tour_s"] = time.perf_counter() - t0
             tclient.close()
             if card:
                 rec["concurrency"] = _concurrency(server.port, opened, script, n_concurrent)
+            replies += _fleet_check(app, client, opened, compare_now)
+            if card:
+                # the replica that followed the session, then one opened over
+                # the quiet store for the answers: a live follower that
+                # refreshes inside a single remember keeps no BM25 doc for it
+                # (R21), which moves every BM25 score a little
+                t0 = time.perf_counter()
+                rec["replica"] = replica.follow(system, client, opened, batch_spans)
+                rec["replica"]["follow_s"] = time.perf_counter() - t0
+                replica = ReplicaProcess(Path(data_dir) / "users" / SERVER_USER, device,
+                                         Path(work) / "replica2", compare_now)
+                replica.start()
+                texts = [st["body"]["query"] for st in script if st["label"] == "recall"]
+                t0 = time.perf_counter()
+                rec["replica"]["answers"] = replica.answers(system, texts)
+                rec["replica"]["answers_s"] = time.perf_counter() - t0
+            rec["memories_final"] = system.storage.count()
             client.close()
         finally:
+            if replica is not None:
+                replica.kill()
             t0 = time.perf_counter()
             server.stop()  # as SIGINT: the schedulers stop, the manager saves and closes
             rec["stop_s"] = time.perf_counter() - t0
             app_mod._BUCKET, app_mod.REMINDER_INTERVAL_SECS, uuid.uuid4 = bucket, tick, uuid4
+            integrations_sync.fetch_json = fetch
+    if not card:
+        rec["fsck_repair"] = fsck_repair(data_dir, work, device)
     rec["side_s"] = time.perf_counter() - t_start
     return rec
 
@@ -3030,7 +3545,7 @@ def _concurrency(port: int, headers: dict, script: list, n: int) -> dict:
 
 
 def _ms(values) -> dict:
-    return ms_stats(np.asarray(values) / 1e3) if values else {}
+    return ms_stats(np.asarray(values) / 1e3, "") if values else {}
 
 
 def _cli_serve_check(data_dir, device, expect_memories: int) -> dict:
@@ -3038,13 +3553,10 @@ def _cli_serve_check(data_dir, device, expect_memories: int) -> dict:
     ``device``: ``/health`` answers 200, the served user reopens without
     healing (no ``shodh:`` notice) with every memory, and SIGINT exits 0."""
     import signal
-    import socket
 
     from tools import server_tour as tour
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = _free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     args = [sys.executable, "-m", "shodh_tpu_torch.cli", "serve", "--port", str(port),
             "--data-dir", str(data_dir)]
@@ -3133,8 +3645,11 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
     started here), awaited before the card's side begins so that nothing runs
     beside its clocks. Every reply is held to the twin's (status; JSON with
     ids in order, floats rtol 1e-5, atol 1e-7; ``tour.EXCLUDED_KEYS`` and
-    the data dir's path masked), the IPC replies to the HTTP ones; then
-    ``cli serve`` on the card over the stopped store."""
+    the data dir's path masked), the IPC replies to the HTTP ones, the
+    stream's stored memories to the twin's; then three processes at once
+    over the stopped store: ``cli serve`` on the card, ``cli fsck`` on the
+    card (it must say ok) and ``cli fsck --repair`` on the card over a
+    damaged copy of the tour's MIF user, whose report must equal the twin's."""
     from collections import Counter
     from pathlib import Path
 
@@ -3153,7 +3668,16 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
     card_work.mkdir(parents=True)
     card = drive_server(data_dir, device, card_work, card=True, n_concurrent=n_concurrent,
                         sizes=sizes)
-    cli = _cli_serve_check(data_dir, device, card["memories_after"])
+    # three store opens at once beside no writer: the reopen by cli serve,
+    # fsck of the served store, and the repair of a damaged copy
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(_cli_serve_check, data_dir, device, card["memories_final"]),
+                pool.submit(_fsck_cli, data_dir, SERVER_USER, device),
+                pool.submit(fsck_repair, data_dir, card_work, device)]
+        cli, fsck, repair = (j.result() for j in jobs)
+    if fsck["exit"] != 0 or not fsck["report"]["ok"]:
+        raise AssertionError(f"server: fsck of the served store: exit {fsck['exit']}: "
+                             f"{fsck['report']}")
     script = card.pop("script")
     if twin_rec.pop("script") != script:
         raise AssertionError("server: the twin built another script from its copy")
@@ -3185,8 +3709,30 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
         diffs = [d for d in tour.differences(a["body"], b["body"]) if ".session_id" not in d]
         if a["status"] != 200 or a["status"] != b["status"] or diffs:
             raise AssertionError(f"server: the IPC {what} differs from HTTP's: {diffs[:3]}")
-    if card["searches"] != twin["searches"]:
+    if card["searches"] != twin["searches"] or card["stream_searches"] != twin["stream_searches"]:
         raise AssertionError("server: the twin searched the served index otherwise")
+    diffs = tour.differences(tour.normalize(card["stream_memories"], data_dir),
+                             tour.normalize(twin["stream_memories"], twin_data))
+    if diffs or not card["stream_memories"]:
+        raise AssertionError(f"server: the stream stored otherwise than the twin: {diffs[:4]}")
+    checked["stream_memories"] = len(card["stream_memories"])
+    diffs = tour.differences(tour.normalize(repair["report"], card_work / "fsck_copy"),
+                             tour.normalize(twin["fsck_repair"]["report"],
+                                            Path(twin_data).parent / "twin_work" / "fsck_copy"))
+    if diffs:
+        raise AssertionError(f"server: the card's fsck repair differs from the twin's: {diffs}")
+    by_label = {r["label"]: r for r in card["replies"]}
+    session = by_label["stream"]["body"]
+    acks = [m for m in session if m.get("type") == "ack"]
+    flushes = [m for m in session if m.get("type") == "flushed"]
+    n_stream = len(script[[st["label"] for st in script].index("stream")]["body"]) - 1
+    if (len(acks) != n_stream or len(flushes) != -(-n_stream // 20)
+            or sum(a["buffered"] == 20 for a in acks) != n_stream // 20):
+        raise AssertionError(f"server: the stream session's replies: {len(acks)} acks, "
+                             f"{len(flushes)} flushes")
+    monitor = by_label["monitor"]["body"]
+    if by_label["monitor"]["status"] != 101 or monitor[0].get("action") != "remember":
+        raise AssertionError(f"server: the monitor's feed: {monitor}")
     for r in card["replies"]:
         # the recall under the running scoring A/B recorded its one impression
         if r["label"] == "ab_pause" and (r["status"] != 200 or sum(
@@ -3203,14 +3749,38 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
                       or card["launches"]["v3_pass1"] or card["launches"]["v4_pass1"]):
         raise AssertionError(f"server: K1 launched {k1} times for {remembered} memories and "
                              f"{device_searches} searches ({card['launches']})")
+    # the stream's own path: interference's searches of the flushed memories
+    stream_k1 = card.get("stream_launches", {}).get("groupmax", 0)
+    stream_device = sum(1 for b, pending in card["stream_searches"] if not pending)
+    if expect_k1 and (stream_k1 == 0 or stream_k1 < stream_device):
+        raise AssertionError(f"server: K1 launched {stream_k1} times on the stream's path "
+                             f"({stream_device} device searches)")
 
     def ms_of(label):
         return [r["ms"] for r in card["replies"] if r["label"].split(":")[0] == label]
 
     batch_ms = ms_of("batch")
+    timing = card["stream"]
+    rec["stream"] = {
+        "ack_ms": _ms(timing["ack_ms"]), "flush_ms": _ms(timing["flush_ms"]),
+        "flushes": len(timing["flush_ms"]), "memories_flushed": timing["flushed_memories"],
+        "memories_per_s": timing["flushed_memories"] / (sum(timing["flush_ms"]) / 1e3),
+        "session_ms": by_label["stream"]["ms"], "k1_launches": stream_k1,
+        "launches": card.get("stream_launches"), "index_searches": len(card["stream_searches"]),
+        "device_searches": stream_device}
+    rec["monitor"] = {"event": monitor[0], "ms": by_label["monitor"]["ms"]}
+    rec["fleet"] = {r["label"]: r["ms"] for r in card["replies"]
+                    if r["label"].startswith("fleet_")}
+    rec["replica"] = card.get("replica")
+    rec["fsck"] = {"exit": fsck["exit"], "s": fsck["s"], "ok": fsck["report"]["ok"],
+                   "memories": fsck["report"].get("memories")}
+    rec["fsck_repair"] = {"exit": repair["exit"], "s": repair["s"],
+                          "ok": repair["report"]["ok"], "equal_to_twin": True,
+                          "twin_s": twin["fsck_repair"]["s"]}
     rec.update({
         "open_s": card["open_s"], "memories_before": card["memories_before"],
-        "memories_after": card["memories_after"], "index_rows_before": card["index_rows_before"],
+        "memories_after": card["memories_after"], "memories_final": card["memories_final"],
+        "index_rows_before": card["index_rows_before"],
         "remember_ms": _ms(ms_of("remember")), "batch_ms": _ms(batch_ms),
         "batch_memories_per_s": SYSTEM_CALL * len(batch_ms) / (sum(batch_ms) / 1e3),
         "recall_ms": _ms(ms_of("recall")), "staged_ms": _ms(ms_of("staged")),
@@ -3324,7 +3894,7 @@ def main() -> int:
         rec_engine["launches"] = read_launches()  # none of K1-K3 lies on this path
         emit(rec_engine)
         reset_launches()
-        rec_legs = phase_legs(tmp, holder, engines)
+        rec_legs = phase_legs(tmp, holder, engines, n_calls=LEGS_CALLS_CARD)
         rec_legs["launches"] = read_launches()
         rec_legs["ingest_legs"] = rec_engine["ingest_legs"]
         emit(rec_legs)
@@ -3368,6 +3938,7 @@ def main() -> int:
          "minilm_b256_plain_ms": rec_minilm["k1_b256"]["plain_ms"],
          "system_launches": rec_system["launches"]["groupmax"],
          "server_launches": rec_server["k1_launches"],
+         "stream_launches": rec_server["stream"]["k1_launches"],
          "staged_launches": rec_system["staged_launches"]["groupmax"],
          "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],
          "b8_bound_ms": rec_system["k1_b8"]["bound_ms"],

@@ -1,13 +1,28 @@
-"""Command line of the port (port of the ``serve`` and ``eval`` subcommands
-of ``shodh_tpu/cli.py``).
+"""Command line of the port (port of the ``serve``, ``replica``, ``eval``,
+``migrate`` and ``fsck`` subcommands of ``shodh_tpu/cli.py``).
 
     python -m shodh_tpu_torch.cli serve [--port 8900] [--data-dir DIR] [--device cpu | --cpu]
+    python -m shodh_tpu_torch.cli replica --data-dir USER_STORE [--port 8901] [--cpu]
     python -m shodh_tpu_torch.cli eval --suite smoke [--device cpu] [--dump out.json]
+    python -m shodh_tpu_torch.cli migrate [--data-dir DIR] [--backup-dir DIR]
+    python -m shodh_tpu_torch.cli fsck --data-dir DIR [--user U] [--repair] [--cpu]
 
 ``serve`` runs the HTTP API (``server/app.py``) over a multi-user manager
 whose engines live on the card; ``--device cpu`` (or ``--cpu``) asks for the
 CPU, and without either a host with no GPU raises. SIGINT or SIGTERM saves
 and closes every open user and exits 0.
+
+``replica`` serves recall over a writer's store (one user's directory)
+through a ``FollowerReader`` that follows the writer's commits every
+``--refresh-secs``; its index lives on the card unless ``--device cpu`` or
+``--cpu`` asks for the CPU. SIGINT or SIGTERM exits 0.
+
+``fsck`` checks one user's store (``--data-dir``/users/``--user``) and, with
+``--repair``, fixes what it found (repairing takes the writer's role: stop
+the writer first); it prints the JSON report and exits 0 when the store is
+ok, 1 when not, 2 when there is no store. Its system, and the index a repair
+rebuilds, live on the card unless ``--device cpu`` or ``--cpu``. ``migrate``
+re-encodes legacy storage formats in a data directory (host only).
 
 ``eval`` runs the recall-quality harness: a fresh ``MemorySystem`` ingests
 the suite's corpus, every case is recalled under each mode of ``--layers``,
@@ -47,9 +62,18 @@ def main(argv: list[str] | None = None) -> int:
     s.add_argument("--ipc", default="", metavar="SOCKET",
                    help="local IPC socket path (default: <data-dir>/shodh.sock; "
                         "SHODH_IPC_ENABLED=false disables)")
-    s.add_argument("--device", default=None,
-                   help="torch device of every user's engine (default: the CUDA card; 'cpu')")
-    s.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+    _device_args(s, "every user's engine")
+
+    rp = sub.add_parser(
+        "replica",
+        help="read-replica recall server over a writer's store (engine/follower.py)",
+    )
+    rp.add_argument("--data-dir", required=True,
+                    help="the WRITER system's data dir (one user's store)")
+    rp.add_argument("--host", default="127.0.0.1")
+    rp.add_argument("--port", type=int, default=8901)
+    rp.add_argument("--refresh-secs", type=float, default=1.0)
+    _device_args(rp, "the follower's index")
 
     e = sub.add_parser("eval", help="run the recall-quality harness")
     e.add_argument(
@@ -68,17 +92,41 @@ def main(argv: list[str] | None = None) -> int:
     e.add_argument("--device", default=None,
                    help="torch device of the system (default: the CUDA card; 'cpu')")
 
+    m = sub.add_parser("migrate", help="migrate storage formats in a data dir")
+    m.add_argument("--data-dir", default="~/.shodh-tpu")
+    m.add_argument("--backup-dir", default=None)
+
+    f = sub.add_parser(
+        "fsck",
+        help="store integrity check (+ --repair; repairing takes the "
+        "writer role — stop the writer process first)",
+    )
+    f.add_argument("--data-dir", required=True)
+    f.add_argument("--user", default="default")
+    f.add_argument("--repair", action="store_true")
+    _device_args(f, "the checked system")
+
     args = p.parse_args(argv)
 
-    if args.cmd == "serve":
+    def device():
         from shodh_tpu_torch.device import resolve_device
-        from shodh_tpu_torch.server.app import run_server
 
         if args.cpu and args.device not in (None, "cpu"):
             p.error("--cpu contradicts --device " + args.device)
-        device = resolve_device("cpu" if args.cpu else args.device)  # raises without a GPU
+        return resolve_device("cpu" if args.cpu else args.device)  # raises without a GPU
+
+    if args.cmd == "serve":
+        from shodh_tpu_torch.server.app import run_server
+
         run_server(data_dir=args.data_dir, host=args.host, port=args.port,
-                   ipc_path=args.ipc, device=device)
+                   ipc_path=args.ipc, device=device())
+        return 0
+
+    if args.cmd == "replica":
+        from shodh_tpu_torch.server.replica import run_replica
+
+        run_replica(data_dir=args.data_dir, host=args.host, port=args.port,
+                    refresh_secs=args.refresh_secs, device=device())
         return 0
 
     if args.cmd == "eval":
@@ -116,8 +164,52 @@ def main(argv: list[str] | None = None) -> int:
             return 0 if ok else 1
         return 0
 
+    if args.cmd == "migrate":
+        from shodh_tpu_torch.storage.migration import migrate_data_dir
+
+        report = migrate_data_dir(
+            Path(args.data_dir).expanduser(), args.backup_dir
+        )
+        print(json.dumps(report, indent=1))
+        return 0
+
+    if args.cmd == "fsck":
+        from shodh_tpu_torch.engine.memory_system import MemorySystem
+        from shodh_tpu_torch.storage.fsck import check_store, public_report, repair_store
+
+        dev = device()
+        base = Path(args.data_dir).expanduser()
+        store = base / "users" / args.user
+        if not store.exists() and (base / args.user).exists():
+            store = base / args.user  # pre-harmonized embedded layout
+        if not store.exists():
+            # a typo'd --data-dir/--user must not mkdir an empty store and
+            # then "fail" it for the missing stamp
+            print(json.dumps({"error": f"no store at {store}"}), file=sys.stderr)
+            return 2
+        # readonly unless repairing: fsck of a live writer's store must
+        # not itself write (WAL single-writer discipline). --repair takes
+        # the writer role: stop the writer process first.
+        system = MemorySystem(store, readonly=not args.repair, device=dev)
+        try:
+            report = check_store(system)
+            if args.repair and not report["ok"]:
+                report = repair_store(system, report)
+                report["repaired"] = True
+        finally:
+            system.close()
+        report = public_report(report)
+        print(json.dumps(report, indent=1))
+        return 0 if report["ok"] else 1
+
     p.print_help()
     return 1
+
+
+def _device_args(parser, what: str) -> None:
+    parser.add_argument("--device", default=None,
+                        help=f"torch device of {what} (default: the CUDA card; 'cpu')")
+    parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
 
 
 if __name__ == "__main__":

@@ -8,15 +8,15 @@ a worker thread so the event loop never blocks on device compute.
 Auth (reference auth.rs): keys from SHODH_API_KEYS (comma-separated),
 constant-time comparison, FAIL CLOSED — with no keys configured every
 authenticated route returns 503 AUTH_NOT_CONFIGURED; a dev key is honored
-only when explicitly set via SHODH_DEV_API_KEY.
+only when explicitly set via SHODH_DEV_API_KEY. Webhook receivers
+(/webhook/github, /webhook/linear) are public but HMAC-mandatory.
 
 Port of ``shodh_tpu/server/app.py``: the handlers and middlewares are the
 reference's, over the port's own HTTP layer (``server/web.py``, the part of
 aiohttp.web the server uses), and each user's engine lives on the manager's
 device (``run_server(device=...)``; the card unless the caller names the
-CPU). Not served yet: the WebSocket routes (``/api/stream``,
-``/api/context/monitor``), the webhook receivers, the GitHub/Linear pull
-sync, the MIF interchange and store fsck routes, and the fleet mesh attach.
+CPU). Every route of the reference is served, the WebSocket ones
+(``/api/stream``, ``/api/context/monitor``) through ``web.WebSocketResponse``.
 """
 
 from __future__ import annotations
@@ -1440,14 +1440,69 @@ def make_app(manager: MultiUserMemoryManager) -> web.Application:
     app.router.add_post("/api/graph/{user_id}/canonicalize", graph_canonicalize)
 
     from shodh_tpu_torch.server.dashboard import register_dashboard
+    from shodh_tpu_torch.server.streaming import stream_handler
+    from shodh_tpu_torch.server.webhooks import register_webhook_routes
 
     register_dashboard(app)
+    app.router.add_get("/api/stream", stream_handler)
+    register_webhook_routes(app)
+
+    # MIF interchange
+    async def export_mif_route(request):
+        uid = user_of(request)
+        sys_ = mgr(request).get_user_memory(uid)
+        from shodh_tpu_torch.storage.mif import export_mif
+        from shodh_tpu_torch.utils.clock import scoring_now
+
+        return web.json_response(await run(export_mif, sys_, scoring_now()))
+
+    async def import_mif_route(request):
+        body = await body_json(request)
+        uid = user_of(request, body)
+        sys_ = mgr(request).get_user_memory(uid)
+        from shodh_tpu_torch.storage.mif import import_mif
+
+        doc = body.get("document", body)
+        return web.json_response(await run(import_mif, sys_, doc))
+
+    app.router.add_get("/api/export/mif", export_mif_route)
+    app.router.add_post("/api/import/mif", import_mif_route)
 
     # ==========================================================================
     # Extended surface (round 2): the remaining router.rs registrations.
     # Handlers stay thin adapters over the engine, grouped as in router.rs.
     # ==========================================================================
     from shodh_tpu_torch.utils.clock import scoring_now
+
+    # -- MIF adapters (mif/adapters/, router.rs:467) ---------------------------
+    async def mif_adapters_route(request):
+        from shodh_tpu_torch.storage.mif_adapters import AdapterRegistry
+
+        reg = AdapterRegistry()
+        return web.json_response(
+            {"adapters": reg.list_adapters(), "default_export": "shodh"}
+        )
+
+    async def import_auto_route(request):
+        """Import any supported vendor format (auto-detected)."""
+        from shodh_tpu_torch.storage.mif import import_mif
+        from shodh_tpu_torch.storage.mif_adapters import AdapterRegistry
+
+        raw = await request.read()
+        uid = user_of(request)
+        fmt = request.query.get("format")
+        reg = AdapterRegistry()
+        try:
+            doc = reg.to_mif(raw, format_id=fmt)
+        except ValueError as exc:
+            return _err(400, "unknown_format", str(exc))
+        sys_ = mgr(request).get_user_memory(uid)
+        counts = await run(import_mif, sys_, doc)
+        adapter = fmt or reg.detect(raw).format_id
+        return web.json_response({"adapter": adapter, **counts})
+
+    app.router.add_get("/api/mif/adapters", mif_adapters_route)
+    app.router.add_post("/api/import/auto", import_auto_route)
 
     # -- context status board (health.rs context_status; TUI) ------------------
     async def context_status_get(request):
@@ -1483,11 +1538,28 @@ def make_app(manager: MultiUserMemoryManager) -> web.Application:
             mgr(request).unsubscribe(q)
         return resp
 
+    async def context_monitor_ws(request):
+        """WS feed of all memory events (webhooks.rs context_monitor_ws)."""
+        ws = web.WebSocketResponse()
+        await ws.prepare(request)
+        q: asyncio.Queue = asyncio.Queue(maxsize=256)
+        mgr(request).subscribe(q)
+        try:
+            while True:
+                event = await q.get()
+                await ws.send_json(event)
+        except (asyncio.CancelledError, ConnectionResetError):
+            pass
+        finally:
+            mgr(request).unsubscribe(q)
+        return ws
+
     app.router.add_get("/api/context/status", context_status_get)
     app.router.add_post("/api/context/status", context_status_post)
     app.router.add_get("/api/context_status", context_status_get)  # TUI alias
     app.router.add_post("/api/context_status", context_status_post)
     app.router.add_get("/api/context/sse", context_sse)
+    app.router.add_get("/api/context/monitor", context_monitor_ws)
     app.router.add_get("/api/events", events_sse)  # TUI alias (router.rs:455)
 
     # -- facts tail (handlers/facts.rs) ----------------------------------------
@@ -1703,6 +1775,29 @@ def make_app(manager: MultiUserMemoryManager) -> web.Application:
         })
 
     app.router.add_post("/api/index/repair", index_repair)
+
+    async def store_fsck(request):
+        """Full store integrity check across every derived structure
+        (storage/fsck.py); body {"repair": true} fixes findings."""
+        body = await body_json(request)
+        uid = user_of(request, body)
+        sys_ = mgr(request).get_user_memory(uid)
+        from shodh_tpu_torch.storage.fsck import check_store, public_report, repair_store
+
+        def work():
+            # under the engine lock like every other mutating path: repair
+            # swaps indexes and replays content, which must not race a
+            # concurrent remember/recall on this user's system
+            with sys_._lock:
+                rep = check_store(sys_)
+                if body.get("repair") and not rep["ok"]:
+                    rep = repair_store(sys_, rep)
+                    rep["repaired"] = True
+            return public_report(rep)
+
+        return web.json_response(await run(work))
+
+    app.router.add_post("/api/store/fsck", store_fsck)
 
     # -- backups tail (consolidation.rs) ----------------------------------------
     async def backup_purge(request):
@@ -2195,6 +2290,48 @@ def make_app(manager: MultiUserMemoryManager) -> web.Application:
 
     app.router.add_get("/api/ab/tests/{test_id}", ab_detail)
 
+    # -- pull sync (integrations.rs github_sync / linear_sync) ----------------------
+    async def sync_github(request):
+        """Authenticated pull-sync: fetch issues/PRs from the GitHub API and
+        store them as memories (integrations.rs github_sync). Distinct from
+        the public push receiver at /webhook/github."""
+        from shodh_tpu_torch.server.integrations_sync import github_pull_sync
+
+        body = await body_json(request)
+        uid = user_of(request, body)
+        if not body.get("token"):
+            return _err(400, "invalid_input", "GitHub token is required")
+        if not body.get("owner") or not body.get("repo"):
+            return _err(400, "invalid_input", "owner and repo are required")
+        sys_ = mgr(request).get_user_memory(uid)
+        try:
+            report = await run(
+                github_pull_sync, sys_, body["token"], body["owner"], body["repo"],
+                int(body.get("limit", 30)),
+            )
+        except OSError as exc:
+            return _err(502, "upstream_unreachable", f"GitHub API unreachable: {exc}")
+        return web.json_response(report)
+
+    async def sync_linear(request):
+        from shodh_tpu_torch.server.integrations_sync import linear_pull_sync
+
+        body = await body_json(request)
+        uid = user_of(request, body)
+        if not body.get("token"):
+            return _err(400, "invalid_input", "Linear token is required")
+        sys_ = mgr(request).get_user_memory(uid)
+        try:
+            report = await run(
+                linear_pull_sync, sys_, body["token"], int(body.get("limit", 30))
+            )
+        except OSError as exc:
+            return _err(502, "upstream_unreachable", f"Linear API unreachable: {exc}")
+        return web.json_response(report)
+
+    app.router.add_post("/api/sync/github", sync_github)
+    app.router.add_post("/api/sync/linear", sync_linear)
+
     return app
 
 
@@ -2288,6 +2425,22 @@ def make_server(
         )
         heartbeat.start()
 
+        # Fleet mesh attach (zenoh_transport/mod.rs peer config analog):
+        # SHODH_FLEET_LISTEN=host:port opens the TCP key-expr mesh;
+        # SHODH_FLEET_CONNECT=ep1,ep2 dials seed peers. The full
+        # remember/recall/forget catalog + HMAC auth rides FleetTransport.
+        fleet_bus = None
+        listen = os.environ.get("SHODH_FLEET_LISTEN", "")
+        if listen:
+            from shodh_tpu_torch.server.fleet import FleetTransport
+            from shodh_tpu_torch.server.fleet_net import TcpMeshBus
+
+            connect = [e for e in os.environ.get("SHODH_FLEET_CONNECT", "").split(",") if e]
+            fleet_bus = TcpMeshBus(listen=listen, connect=connect)
+            app["fleet"] = FleetTransport(manager, bus=fleet_bus)
+            app["fleet"].announce(os.environ.get("SHODH_FLEET_ID", fleet_bus.peer_id))
+            print(f"fleet mesh listening on {fleet_bus.endpoint}", file=sys.stderr)
+
         # Local IPC alongside HTTP (server.rs enables it by default; the UDS
         # HMAC handshake pre-authenticates — see local_ipc.py). Resolution:
         # explicit --ipc / SHODH_IPC_PATH path, else <data-dir>/shodh.sock
@@ -2320,6 +2473,8 @@ def make_server(
             t.cancel()
         if ipc_server is not None:
             await ipc_server.stop()
+        if fleet_bus is not None:
+            fleet_bus.close()
         heartbeat.stop()
         manager.close()
 

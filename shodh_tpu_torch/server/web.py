@@ -1,9 +1,12 @@
 """The HTTP layer of the port's server, on ``asyncio`` streams.
 
 The JAX package's server is written on ``aiohttp.web``. The port does not
-depend on aiohttp (the card's machine has none), as it carries its own
-msgpack codec for the same reason. This module is the part of ``aiohttp.web`` that
-``server/app.py`` uses, with aiohttp's semantics where a client can see them:
+depend on aiohttp: it is not among the packages the port may count on, and a
+machine that happens to have it installed does not change that. The port
+carries its own msgpack codec on the same rule. This module is the part of
+``aiohttp.web`` that the port's servers (``server/app.py``,
+``server/replica.py``) use, with aiohttp's semantics where a client can see
+them:
 
 - ``Application``: a mapping with ``router``, ``middlewares``,
   ``cleanup_ctx``, ``on_startup``/``on_cleanup`` and ``client_max_size``;
@@ -20,6 +23,8 @@ msgpack codec for the same reason. This module is the part of ``aiohttp.web`` th
 - ``Response``, ``json_response`` (the body of ``json.dumps``) and
   ``StreamResponse`` (chunked, for the SSE routes; a client that hangs up
   cancels the handler);
+- ``WebSocketResponse`` (RFC 6455; see below), ``WSMsgType``,
+  ``WSMessage`` and ``WSCloseCode``;
 - the ``HTTPException`` family and the ``middleware`` decorator;
 - ``run_app``, which runs the app's startup and, on SIGINT or SIGTERM, its
   cleanup (``cleanup_ctx`` saves and closes the manager);
@@ -29,20 +34,41 @@ msgpack codec for the same reason. This module is the part of ``aiohttp.web`` th
 
 HTTP/1.1: keep-alive (HTTP/1.0 only on request), ``Content-Length`` and
 chunked request bodies, ``Expect: 100-continue``, and a 500 for an uncaught
-exception, which leaves the connection usable. WebSocket is not served.
+exception, which leaves the connection usable.
+
+WebSocket (RFC 6455), as aiohttp's ``WebSocketResponse`` serves it: the
+handshake's refusals answer 400 with aiohttp's texts (a plain GET, or the
+HEAD that ``add_get`` registers, gets ``No WebSocket UPGRADE hdr``);
+``Sec-WebSocket-Accept`` is base64(SHA-1(key + the RFC's GUID)); after the
+101 the connection leaves the keep-alive loop for good, and when the handler
+returns, the socket is closed with a close frame (1000) instead of an HTTP
+response. Fragmented messages are reassembled; a ping is answered with a
+pong; a client's close frame is answered and ends ``async for msg in ws``; a
+message of ``max_msg_size`` bytes or more (4 MiB by default) closes with
+1009; ``heartbeat`` sends a ping after that many idle seconds and closes the
+connection when no pong comes within half of it. One deliberate difference:
+an unmasked client frame closes with 1002, as RFC 6455 section 5.1 requires
+(aiohttp accepts it; no conforming client sends one). No extension is
+negotiated (permessage-deflate is declined, which the RFC allows).
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
+import builtins
+import enum
+import hashlib
 import json
 import re
 import signal
+import struct
 import sys
 import threading
 import traceback
 from http import HTTPStatus
-from typing import Any, Awaitable, Callable, Iterable, Optional
+from typing import Any, Awaitable, Callable, Iterable, NamedTuple, Optional
 from urllib.parse import parse_qsl, unquote
 
 HEAD_LIMIT = 64 * 1024  # bytes of request line and headers
@@ -278,6 +304,412 @@ class HTTPRequestEntityTooLarge(HTTPClientError):
         kw.setdefault("text", f"Maximum request body size {max_size} exceeded, "
                               f"actual body size {actual_size}")
         super().__init__(**kw)
+
+
+# ---------------------------------------------------------------------------
+# WebSocket (RFC 6455)
+# ---------------------------------------------------------------------------
+
+WS_KEY = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"  # RFC 6455 section 1.3
+
+
+class WSMsgType(enum.IntEnum):
+    CONTINUATION = 0x0
+    TEXT = 0x1
+    BINARY = 0x2
+    PING = 0x9
+    PONG = 0xA
+    CLOSE = 0x8
+    CLOSING = 0x100
+    CLOSED = 0x101
+    ERROR = 0x102
+
+
+class WSCloseCode(enum.IntEnum):
+    OK = 1000
+    GOING_AWAY = 1001
+    PROTOCOL_ERROR = 1002
+    UNSUPPORTED_DATA = 1003
+    ABNORMAL_CLOSURE = 1006
+    INVALID_TEXT = 1007
+    POLICY_VIOLATION = 1008
+    MESSAGE_TOO_BIG = 1009
+    MANDATORY_EXTENSION = 1010
+    INTERNAL_ERROR = 1011
+    SERVICE_RESTART = 1012
+    TRY_AGAIN_LATER = 1013
+    BAD_GATEWAY = 1014
+
+
+_ALLOWED_CLOSE_CODES = {int(c) for c in WSCloseCode} - {1006}
+
+
+class WSMessage(NamedTuple):
+    type: WSMsgType
+    data: Any
+    extra: Optional[str]
+
+
+class WebSocketError(Exception):
+    """A protocol error of the peer: ``code`` is the close code it earns."""
+
+    def __init__(self, code: int, message: str):
+        super().__init__(code, message)
+        self.code = code
+
+    def __str__(self) -> str:
+        return self.args[1]
+
+
+def accept_key(key: str) -> str:
+    """``Sec-WebSocket-Accept`` for a client's ``Sec-WebSocket-Key``."""
+    return base64.b64encode(hashlib.sha1(key.encode() + WS_KEY).digest()).decode()
+
+
+def ws_frame(payload: bytes, opcode: int, *, fin: bool = True,
+             mask: Optional[bytes] = None) -> bytes:
+    """One frame on the wire; ``mask`` (4 bytes) masks it, as a client must."""
+    n = len(payload)
+    head = bytes([(0x80 if fin else 0) | int(opcode)])
+    bit = 0x80 if mask is not None else 0
+    if n < 126:
+        head += bytes([bit | n])
+    elif n < 1 << 16:
+        head += bytes([bit | 126]) + struct.pack("!H", n)
+    else:
+        head += bytes([bit | 127]) + struct.pack("!Q", n)
+    if mask is None:
+        return head + payload
+    return head + mask + ws_unmask(mask, payload)
+
+
+def ws_unmask(mask: bytes, data: bytes) -> bytes:
+    """``data`` XOR the 4-byte ``mask`` repeated (masking is its own inverse)."""
+    n = len(data)
+    if not n:
+        return b""
+    key = int.from_bytes((mask * (n // 4 + 1))[:n], "little")
+    return (int.from_bytes(data, "little") ^ key).to_bytes(n, "little")
+
+
+class WebSocketResponse(StreamResponse):
+    """The server's side of a WebSocket, as aiohttp's ``WebSocketResponse``:
+    ``prepare`` answers the handshake (or raises 400), then ``receive`` /
+    ``async for msg in ws`` and the ``send_*`` methods, ``close``."""
+
+    def __init__(self, *, timeout: float = 10.0, heartbeat: Optional[float] = None,
+                 max_msg_size: int = 4 * 1024 * 1024):
+        super().__init__(status=101)
+        self._timeout = timeout  # the wait for the peer's close frame
+        self._heartbeat = heartbeat
+        self._max_msg_size = max_msg_size
+        self._closed = False
+        self._closing = False
+        self._close_code: Optional[int] = None
+        self._exception: Optional[BaseException] = None
+        self._waiting = False
+        self._read_failed = False  # the stream is past a bad frame: read no more
+        self._conn_lost = 0
+        self._partial = bytearray()
+        self._frag_op: Optional[int] = None
+        self._heartbeat_cb: Optional[asyncio.TimerHandle] = None
+        self._pong_cb: Optional[asyncio.TimerHandle] = None
+
+    # -- the handshake ----------------------------------------------------------
+
+    def _handshake(self, request: "Request") -> dict:
+        headers = request.headers
+        if headers.get("Upgrade", "").lower().strip() != "websocket":
+            raise HTTPBadRequest(text='No WebSocket UPGRADE hdr: {}\n Can "Upgrade" only to '
+                                      '"WebSocket".'.format(headers.get("Upgrade")))
+        if "upgrade" not in headers.get("Connection", "").lower():
+            raise HTTPBadRequest(text="No CONNECTION upgrade hdr: {}".format(
+                headers.get("Connection")))
+        version = headers.get("Sec-WebSocket-Version", "")
+        if version not in ("13", "8", "7"):
+            raise HTTPBadRequest(text=f"Unsupported version: {version}")
+        key = headers.get("Sec-WebSocket-Key")
+        try:
+            if not key or len(base64.b64decode(key)) != 16:
+                raise HTTPBadRequest(text=f"Handshake error: {key!r}")
+        except binascii.Error:
+            raise HTTPBadRequest(text=f"Handshake error: {key!r}") from None
+        # no subprotocol and no extension is offered back (none is served)
+        return {"Upgrade": "websocket", "Connection": "upgrade",
+                "Sec-WebSocket-Accept": accept_key(key)}
+
+    async def prepare(self, request: "Request") -> None:
+        if self._conn is not None:
+            return
+        reply = self._handshake(request)
+        conn = request._conn
+        if conn is None:
+            raise RuntimeError("a WebSocket needs a connection")
+        self._conn = conn
+        self.headers.update(reply)
+        await conn.start_websocket(self)
+        self._reset_heartbeat()
+
+    # -- state --------------------------------------------------------------------
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def close_code(self) -> Optional[int]:
+        return self._close_code
+
+    def exception(self) -> Optional[BaseException]:
+        return self._exception
+
+    def _need_conn(self) -> "_Connection":
+        if self._conn is None:
+            raise RuntimeError("Call .prepare() first")
+        return self._conn
+
+    def _close_transport(self) -> None:
+        if self._conn is not None:
+            self._conn.writer.close()
+
+    def _set_closed(self) -> None:
+        self._closed = True
+        self._cancel_heartbeat()
+
+    # -- heartbeat ----------------------------------------------------------------
+
+    def _cancel_heartbeat(self) -> None:
+        for cb in (self._heartbeat_cb, self._pong_cb):
+            if cb is not None:
+                cb.cancel()
+        self._heartbeat_cb = self._pong_cb = None
+
+    def _reset_heartbeat(self) -> None:
+        if self._heartbeat is None or self._closed:
+            return
+        self._cancel_heartbeat()
+        self._heartbeat_cb = asyncio.get_running_loop().call_later(self._heartbeat,
+                                                                  self._send_heartbeat)
+
+    def _send_heartbeat(self) -> None:
+        self._heartbeat_cb = None
+        loop = asyncio.get_running_loop()
+        self._pong_cb = loop.call_later(self._heartbeat / 2.0, self._pong_not_received)
+        loop.create_task(self._send_quietly(b"", WSMsgType.PING))
+
+    async def _send_quietly(self, payload: bytes, opcode: int) -> None:
+        try:
+            await self.send_frame(payload, opcode)
+        except (ConnectionError, OSError) as exc:
+            self._lost(exc)
+
+    def _pong_not_received(self) -> None:
+        self._pong_cb = None
+        self._lost(asyncio.TimeoutError(
+            f"No PONG received after {self._heartbeat / 2.0} seconds"))
+
+    def _lost(self, exc: BaseException) -> None:
+        if self._closed:
+            return
+        self._set_closed()
+        self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+        self._exception = exc
+        self._close_transport()  # a pending receive() wakes to an ERROR message
+
+    # -- sending ------------------------------------------------------------------
+
+    async def send_frame(self, message: bytes, opcode: int) -> None:
+        await self._need_conn().write_raw(ws_frame(bytes(message), opcode))
+
+    async def send_str(self, data: str) -> None:
+        if not isinstance(data, str):
+            raise TypeError("data argument must be str (%r)" % type(data))
+        await self.send_frame(data.encode("utf-8"), WSMsgType.TEXT)
+
+    async def send_json(self, data: Any, *, dumps: Callable[[Any], str] = json.dumps) -> None:
+        await self.send_str(dumps(data))
+
+    async def write_eof(self) -> None:
+        if self._conn is not None and not self._eof:
+            self._eof = True
+            await self.close()
+
+    async def close(self, *, code: int = WSCloseCode.OK, message: bytes = b"") -> bool:
+        """Send a close frame and, unless the peer closed first, wait up to
+        ``timeout`` seconds for its own; then close the socket."""
+        self._need_conn()
+        if self._closed:
+            return False
+        self._set_closed()
+        try:
+            await self.send_frame(struct.pack("!H", int(code)) + message, WSMsgType.CLOSE)
+        except (ConnectionError, OSError) as exc:
+            self._exception = exc
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            return True
+        if self._closing or self._waiting or self._read_failed:
+            # the peer closed first, a receive() of another task holds the
+            # stream, or the stream is past a bad frame: no close frame to wait for
+            if self._close_code is None:
+                self._close_code = int(code)
+            self._close_transport()
+            return True
+        try:
+            async with asyncio.timeout(self._timeout):
+                while True:
+                    fin, op, payload = await self._read_frame()
+                    if op == WSMsgType.CLOSE:
+                        self._close_code = self._close_frame(payload).data
+                        break
+        except asyncio.CancelledError:
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+            self._close_transport()
+            raise
+        except Exception as exc:  # noqa: BLE001 — a peer that never answers
+            self._exception = exc
+            self._close_code = WSCloseCode.ABNORMAL_CLOSURE
+        self._close_transport()
+        return True
+
+    # -- receiving ----------------------------------------------------------------
+
+    async def _read_frame(self) -> tuple[bool, int, bytes]:
+        reader = self._need_conn().reader
+        b0, b1 = await reader.readexactly(2)
+        fin, opcode, length = bool(b0 & 0x80), b0 & 0x0F, b1 & 0x7F
+        if b0 & 0x70:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                 "Received frame with non-zero reserved bits")
+        if opcode > 0x7 and not fin:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR, "Received fragmented control frame")
+        if opcode > 0x7 and length > 125:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                 "Control frame payload cannot be larger than 125 bytes")
+        if length == 126:
+            (length,) = struct.unpack("!H", await reader.readexactly(2))
+        elif length == 127:
+            (length,) = struct.unpack("!Q", await reader.readexactly(8))
+        if not b1 & 0x80:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                 "Received an unmasked frame from the client")
+        mask = await reader.readexactly(4)
+        if (self._max_msg_size and opcode <= 0x2
+                and len(self._partial) + length >= self._max_msg_size):
+            raise WebSocketError(WSCloseCode.MESSAGE_TOO_BIG,
+                                 f"Message size {len(self._partial) + length} "
+                                 f"exceeds limit {self._max_msg_size}")
+        return fin, opcode, ws_unmask(mask, await reader.readexactly(length))
+
+    @staticmethod
+    def _close_frame(payload: bytes) -> WSMessage:
+        if len(payload) >= 2:
+            (code,) = struct.unpack("!H", payload[:2])
+            if code < 3000 and code not in _ALLOWED_CLOSE_CODES:
+                raise WebSocketError(WSCloseCode.PROTOCOL_ERROR, f"Invalid close code: {code}")
+            try:
+                text = payload[2:].decode("utf-8")
+            except UnicodeDecodeError as exc:
+                raise WebSocketError(WSCloseCode.INVALID_TEXT,
+                                     "Invalid UTF-8 text message") from exc
+            return WSMessage(WSMsgType.CLOSE, code, text)
+        if payload:
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR, f"Invalid close frame: {payload!r}")
+        return WSMessage(WSMsgType.CLOSE, 0, "")
+
+    async def _next_message(self) -> WSMessage:
+        """The next message: data frames reassembled, control frames as they come."""
+        while True:
+            fin, opcode, payload = await self._read_frame()
+            if opcode in (WSMsgType.TEXT, WSMsgType.BINARY, WSMsgType.CONTINUATION):
+                if opcode == WSMsgType.CONTINUATION and self._frag_op is None:
+                    raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                         "Continuation frame for non started message")
+                if not fin:
+                    if opcode != WSMsgType.CONTINUATION:
+                        self._frag_op = opcode
+                    self._partial += payload
+                    continue
+                if opcode == WSMsgType.CONTINUATION:
+                    opcode, self._frag_op = self._frag_op, None
+                elif self._partial:
+                    raise WebSocketError(WSCloseCode.PROTOCOL_ERROR,
+                                         "The opcode in non-fin frame is expected to be "
+                                         f"zero, got {opcode!r}")
+                data = bytes(self._partial) + payload
+                self._partial.clear()
+                if opcode == WSMsgType.BINARY:
+                    return WSMessage(WSMsgType.BINARY, data, "")
+                try:
+                    return WSMessage(WSMsgType.TEXT, data.decode("utf-8"), "")
+                except UnicodeDecodeError as exc:
+                    raise WebSocketError(WSCloseCode.INVALID_TEXT,
+                                         "Invalid UTF-8 text message") from exc
+            if opcode == WSMsgType.CLOSE:
+                return self._close_frame(payload)
+            if opcode in (WSMsgType.PING, WSMsgType.PONG):
+                return WSMessage(WSMsgType(opcode), payload, "")
+            raise WebSocketError(WSCloseCode.PROTOCOL_ERROR, f"Unexpected opcode={opcode!r}")
+
+    async def receive(self) -> WSMessage:
+        """The next message; a ping is answered and a pong taken on the way,
+        and a close frame is answered before CLOSE is returned."""
+        self._need_conn()
+        while True:
+            if self._waiting:
+                raise RuntimeError("Concurrent call to receive() is not allowed")
+            if self._closed:
+                self._conn_lost += 1
+                if self._conn_lost >= 5:
+                    raise RuntimeError("WebSocket connection is closed.")
+                return WSMessage(WSMsgType.CLOSED, None, None)
+            if self._closing:
+                return WSMessage(WSMsgType.CLOSING, None, None)
+            self._waiting = True
+            try:
+                try:
+                    msg = await self._next_message()
+                finally:
+                    self._waiting = False
+                self._reset_heartbeat()
+            except WebSocketError as exc:
+                self._read_failed = True
+                self._close_code = exc.code
+                await self.close(code=exc.code)
+                return WSMessage(WSMsgType.ERROR, exc, None)
+            except (asyncio.IncompleteReadError, ConnectionError, OSError) as exc:
+                # the peer hung up without a close frame, or a missed pong
+                # closed the socket (``_lost``)
+                self._read_failed = True
+                if self._exception is not None:
+                    self._conn_lost += 1
+                    return WSMessage(WSMsgType.ERROR, self._exception, None)
+                self._set_closed()
+                self._close_code = WSCloseCode.OK
+                self._exception = None if isinstance(exc, asyncio.IncompleteReadError) else exc
+                self._close_transport()
+                return WSMessage(WSMsgType.CLOSED, None, None)
+            if msg.type == WSMsgType.CLOSE:
+                self._closing = True
+                self._close_code = msg.data
+                self._cancel_heartbeat()
+                if not self._closed:
+                    await self.close()
+            elif msg.type == WSMsgType.PING:
+                await self.send_frame(msg.data, WSMsgType.PONG)
+                continue
+            elif msg.type == WSMsgType.PONG:
+                continue
+            return msg
+
+    def __aiter__(self) -> "WebSocketResponse":
+        return self
+
+    async def __anext__(self) -> WSMessage:
+        msg = await self.receive()
+        if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED):
+            raise StopAsyncIteration
+        return msg
 
 
 def internal_error() -> Response:
@@ -579,6 +1011,7 @@ class _Connection:
         peer = writer.get_extra_info("peername")
         self.remote = peer[0] if isinstance(peer, tuple) else None
         self.streaming = False
+        self.upgraded = False  # a WebSocket: the connection left the HTTP loop
         self.busy = False
 
     async def write_raw(self, data: bytes) -> None:
@@ -615,6 +1048,12 @@ class _Connection:
                 task.cancel()
 
         self._watcher = asyncio.create_task(watch())
+
+    async def start_websocket(self, resp: "WebSocketResponse") -> None:
+        """Answer the handshake with 101; the connection is the socket's now."""
+        self.streaming = self.upgraded = True
+        lines = [f"HTTP/1.1 101 {_reason(101)}"] + [f"{k}: {v}" for k, v in resp.headers.items()]
+        await self.write_raw(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
 
     async def _read_body(self, headers: CIMultiDict, max_size: int) -> tuple[bytes, int]:
         te = headers.get("Transfer-Encoding", "").lower()
@@ -689,6 +1128,14 @@ class _Connection:
                     resp = await self.app.handle(request)
                 finally:
                     self.busy = False
+                if self.upgraded:
+                    # the handler's WebSocket is done: a close frame, not a response
+                    if isinstance(resp, WebSocketResponse):
+                        try:
+                            await resp.write_eof()
+                        except (ConnectionError, OSError):
+                            pass
+                    return
                 if self.streaming:
                     try:
                         await resp.write_eof()
@@ -793,14 +1240,17 @@ class AppServer:
         await self.app.cleanup()
 
 
-def run_app(app: Application, *, host: str = "0.0.0.0", port: int = 8080) -> None:
-    """Serve ``app`` until SIGINT or SIGTERM, then shut it down and clean up."""
+def run_app(app: Application, *, host: str = "0.0.0.0", port: int = 8080,
+            print: Optional[Callable[..., None]] = builtins.print) -> None:
+    """Serve ``app`` until SIGINT or SIGTERM, then shut it down and clean up.
+    ``print`` shows the banner (``None``: none), as in aiohttp."""
 
     async def main() -> None:
         server = AppServer(app)
         await server.start(host, port)
-        print(f"======== Running on http://{host}:{server.port} ========\n"
-              "(Press CTRL+C to quit)", flush=True)
+        if print is not None:
+            print(f"======== Running on http://{host}:{server.port} ========\n"
+                  "(Press CTRL+C to quit)", flush=True)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):

@@ -52,11 +52,25 @@ def spans(out):
     return [(s.text, s.fine_label, s.coarse, s.start, s.end) for s in out]
 
 
+def _pristine(module):
+    """A fresh copy of ``module`` as its import builds it, outside
+    ``sys.modules``: its tables hold no ``register_fine_type`` that another
+    test made at run time (``tests/test_misc.py`` registers ``llm``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_pristine_{module.__name__}",
+                                                  module.__file__)
+    fresh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fresh)
+    return fresh
+
+
 def test_schema_and_label_axis_equal_reference():
     fine = entity_type.fine_labels_in_schema_order()
     assert fine == ref_entity_type.fine_labels_in_schema_order() and len(fine) == 141
     assert entity_type.COARSE == ref_entity_type.COARSE
-    assert entity_type.FINE_TO_COARSE == ref_entity_type.FINE_TO_COARSE
+    assert (_pristine(entity_type).FINE_TO_COARSE
+            == _pristine(ref_entity_type).FINE_TO_COARSE)
     for label in entity_type.fine_labels_in_schema_order() + ["Person", "nope", "city"]:
         assert entity_type.coarse_of(label) == ref_entity_type.coarse_of(label)
         assert entity_type.qid_of(label) == ref_entity_type.qid_of(label)

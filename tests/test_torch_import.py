@@ -113,6 +113,17 @@ PORT_MODULES = [
     "shodh_tpu_torch.server.dashboard",
     "shodh_tpu_torch.server.app",
     "shodh_tpu_torch.server.local_ipc",
+    "shodh_tpu_torch.nlp.segmentation",
+    "shodh_tpu_torch.server.streaming",
+    "shodh_tpu_torch.server.webhooks",
+    "shodh_tpu_torch.server.integrations_sync",
+    "shodh_tpu_torch.storage.mif",
+    "shodh_tpu_torch.storage.mif_adapters",
+    "shodh_tpu_torch.storage.fsck",
+    "shodh_tpu_torch.engine.follower",
+    "shodh_tpu_torch.server.replica",
+    "shodh_tpu_torch.server.fleet",
+    "shodh_tpu_torch.server.fleet_net",
     "tools.server_tour",
     "chip_smoke",
 ]

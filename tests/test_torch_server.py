@@ -5,13 +5,16 @@ drives it); the port's app runs on a real ``127.0.0.1:0`` socket over its own
 HTTP layer (``server/web.py``), with every user's engine on the CPU. Both
 managers hold small stores built by the same scripted session, the route
 tour (``tools/server_tour.py``): one request to every route the
-port registers, HEAD included. To make the two runs comparable the scoring
+port registers, HEAD included, the two WebSocket routes through a WebSocket
+session (aiohttp's client on the JAX side, the tour's own on the port's).
+To make the two runs comparable the scoring
 clock is pinned in both packages for each step, memory ids are uuid5 of
 content and time (writes give ``created_at`` or run at a pinned clock), the
 ``uuid4`` ids that both packages mint (sessions, todos, reminders, A/B
 tests, tracking ids) come from one seeded sequence per package, the rate
-limiter is lifted for every case but the 429 one, and both run in one
-process (one string hash seed, R12).
+limiter is lifted for every case but the 429 one, the pull sync's fetcher
+is the tour's canned one in both packages, and both run in one process (one
+string hash seed, R12).
 
 Every reply must equal the reference's (``tour.differences``): the status,
 and the JSON with ids in order and floats within rtol 1e-5, atol 1e-7.
@@ -35,11 +38,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from aiohttp import ClientWSTimeout
 from aiohttp.test_utils import TestClient, TestServer
 
 import shodh_tpu.server.app as ref_app
+import shodh_tpu.server.integrations_sync as ref_isync
 import shodh_tpu.utils.clock as ref_clock
 import shodh_tpu_torch.server.app as port_app
+import shodh_tpu_torch.server.integrations_sync as port_isync
 import shodh_tpu_torch.utils.clock as port_clock
 from shodh_tpu.server.state import MultiUserMemoryManager as RefManager
 from shodh_tpu_torch.server import web
@@ -52,20 +58,6 @@ KEY = ref_app.DEV_KEY  # tests/conftest.py sets SHODH_DEV_API_KEY to it
 HEADERS = {"X-API-Key": KEY}
 USER = "tour"
 SCAN_DIR = str(ROOT / "shodh_tpu_torch" / "data")
-
-# The JAX package's routes that the port does not serve yet, route by route
-# (ROADMAP.md section 1 lists them in the order they are to be ported)
-DEFERRED_ROUTES = {
-    ("GET", "/api/stream"), ("HEAD", "/api/stream"),  # WebSocket ingest
-    ("GET", "/api/context/monitor"), ("HEAD", "/api/context/monitor"),  # WebSocket feed
-    ("POST", "/webhook/github"), ("POST", "/webhook/linear"),  # server/webhooks.py
-    ("POST", "/api/sync/github"), ("POST", "/api/sync/linear"),  # server/integrations_sync.py
-    ("POST", "/api/store/fsck"),  # storage/fsck.py
-    ("GET", "/api/export/mif"), ("HEAD", "/api/export/mif"),  # storage/mif.py
-    ("POST", "/api/import/mif"),
-    ("GET", "/api/mif/adapters"), ("HEAD", "/api/mif/adapters"),  # storage/mif_adapters.py
-    ("POST", "/api/import/auto"),
-}
 
 
 def route_table(app) -> set[tuple[str, str]]:
@@ -165,6 +157,45 @@ class Pair:
     def port_send(self, method, path, body, headers):
         return self.http.request(method, path, body, headers)
 
+    def ref_ws(self, path, headers, frames, trig):
+        """A WebSocket session on the JAX server through aiohttp's client, as
+        ``tour.ws_session`` holds one on the port's."""
+        async def go():
+            # the feed never answers a client's close: wait as the tour's client does
+            wait = tour.FEED_CLOSE_WAIT_S if trig is not None else 10.0
+            ws = await self.client.ws_connect(path, headers=headers,
+                                              timeout=ClientWSTimeout(ws_close=wait))
+            out = []
+            for frame, n_replies in frames:
+                await ws.send_json(frame)
+                for _ in range(n_replies):
+                    out.append(await ws.receive_json(timeout=60))
+            if trig is not None:
+                method, tpath, tbody = trig
+                for attempt in range(3):  # as tour.ws_session: once subscribed
+                    await asyncio.sleep(0.05)
+                    reply = await self.client.request(method, tpath, json=tbody, headers=headers)
+                    await reply.read()
+                    try:
+                        out.append(await ws.receive_json(timeout=5))
+                        break
+                    except asyncio.TimeoutError:
+                        if attempt == 2:
+                            raise
+            await ws.close()
+            # aiohttp reports 1006 when no close frame came back
+            code = None if ws.close_code == 1006 else ws.close_code
+            return 101, out + [{"close": code}]
+        return self.loop.run_until_complete(go())
+
+    def port_ws(self, path, headers, frames, trig):
+        trigger = None
+        if trig is not None:
+            method, tpath, tbody = trig
+            trigger = lambda: self.http.request(method, tpath, tbody, headers)  # noqa: E731
+        return tour.ws_session("127.0.0.1", self.server.port, path, headers, frames, trigger,
+                               expect=1 if trig is not None else 0)
+
     def port_stream(self, path, headers, trig):
         method, tpath, tbody, thdrs = (*trig, headers)[:4]
         return tour.sse_first_event("127.0.0.1", self.server.port, path, headers,
@@ -185,6 +216,8 @@ def pair(tmp_path_factory):
     mp.setattr(uuid, "uuid4", seeded)
     for mod in (ref_app, port_app):
         mp.setattr(mod, "_BUCKET", _OpenBucket())
+    for mod in (ref_isync, port_isync):
+        mp.setattr(mod, "fetch_json", tour.canned_fetch)
     mp.setenv("SHODH_API_KEYS", "")
     mp.delenv("SHODH_TELEMETRY", raising=False)
     p = Pair(tmp_path_factory.mktemp("server"))
@@ -201,10 +234,11 @@ def tour_runs(pair):
     """The route tour on both servers: (reference records, port records)."""
     steps = tour.steps(SCAN_DIR)
     pair.seeded.reset()
-    ref = tour.run_tour(pair.ref_send, pair.ref_stream, ref_clock.pin_now, steps, USER, HEADERS)
+    ref = tour.run_tour(pair.ref_send, pair.ref_stream, ref_clock.pin_now, steps, USER, HEADERS,
+                        ws=pair.ref_ws)
     pair.seeded.reset()
     port = tour.run_tour(pair.port_send, pair.port_stream, port_clock.pin_now, steps, USER,
-                         HEADERS)
+                         HEADERS, ws=pair.port_ws)
     return ref, port
 
 
@@ -237,16 +271,10 @@ def assert_same_replies(ref_recs, port_recs, pair, group=None) -> int:
 
 
 def test_route_table_equals_the_reference_minus_the_deferred(pair):
+    """No route is deferred any more: the port's table is the reference's."""
     ref, port = route_table(pair.ref_web), route_table(pair.port_web)
-    assert DEFERRED_ROUTES <= ref
-    assert port == ref - DEFERRED_ROUTES, (sorted(port - ref), sorted(ref - port - DEFERRED_ROUTES))
-    assert len(port) == 241
-
-
-def test_deferred_routes_answer_404_not_500(pair):
-    for method, path in sorted(DEFERRED_ROUTES):
-        status, _, _ = pair.port_request(method, path, {} if method == "POST" else None, HEADERS)
-        assert status == 404, (method, path, status)
+    assert port == ref, (sorted(port - ref), sorted(ref - port))
+    assert len(port) == 256
 
 
 def test_the_tour_reaches_every_registered_route(pair, tour_runs):
@@ -283,6 +311,35 @@ def test_tour_served_the_engine(tour_runs):
     events = [r for r in port if r["group"] == "events" and r["method"] == "GET"]
     assert [e["body"]["via"] for e in events] == ["/api/events/sse", "/api/events",
                                                  "/api/context/sse"]
+
+
+
+def test_tour_served_the_interchange_and_websocket_routes(tour_runs):
+    """Each webhook, sync, MIF and fsck step answered as its case asks, the
+    stream session's flushes stored memories, and the feed carried the
+    remember that the tour sent."""
+    _, port = tour_runs
+    got = {(r["method"], r["path"].split("?")[0], i): r for i, r in enumerate(port)
+           if r["group"] in ("interchange", "websocket")}
+    statuses = [r["status"] for r in got.values()]
+    assert statuses == [200, 401, 200, 200, 400, 200, 200, 200, 200, 200, 200, 200, 400, 200,
+                        200, 200, 101, 400, 101, 400], statuses
+    by_path = {}
+    for (method, path, _), r in got.items():
+        by_path.setdefault((method, path), []).append(r["body"])
+    assert by_path[("POST", "/webhook/github")][0]["stored"] is True
+    assert by_path[("POST", "/api/sync/github")][0]["issues_synced"] == 1
+    assert by_path[("POST", "/api/import/mif")][0]["memories"] == 1
+    assert by_path[("POST", "/api/import/auto")][0] == {"adapter": "mem0", **by_path[
+        ("POST", "/api/import/auto")][0]} and by_path[("POST", "/api/import/auto")][0][
+        "memories"] == 2
+    assert all(rep["ok"] for rep in by_path[("POST", "/api/store/fsck")])
+    session = by_path[("GET", "/api/stream")][0]
+    flushed = [m for m in session if m.get("type") == "flushed"]
+    assert len(flushed) == 2 and all(m["memory_ids"] for m in flushed)
+    assert session[-1] == {"close": 1000}
+    feed = by_path[("GET", "/api/context/monitor")][0]
+    assert feed[0]["action"] == "remember" and feed[-1] == {"close": None}
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +559,8 @@ if __name__ == "__main__":
     cs.make_store_quiet(holder, store)
     del holder, engines
     out = cs.phase_server(data_dir, work, device="cpu", expect_k1=False, n_concurrent=3,
-                          sizes=dict(n_recalls=3, n_batch=64, n_single=3, n_proactive=2))
+                          sizes=dict(n_recalls=3, n_batch=64, n_single=3, n_proactive=2,
+                                     n_stream=24))
     print(json.dumps(out))
 """
 
@@ -519,10 +577,15 @@ def test_chip_smoke_runs_every_staged_shape_on_the_card():
 
 def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
     """The chip script's ``server`` phase at a small size on the CPU: the
-    served store opens quietly, the script, the route tour and the IPC pair
-    run, every reply equals the twin's (in a process of its own, under the
-    script's string hash seed), and ``cli serve`` reopens the stopped store
-    quietly and exits 0 on SIGINT."""
+    served store opens quietly, the script, the route tour, the IPC pair, a
+    stream session, the monitor's feed and the fleet mesh run, every reply
+    and the stream's stored memories equal the twin's (in a process of its
+    own, under the script's string hash seed); the read replica (``cli
+    replica --cpu``) follows the writer to its index length and exits 0 on
+    SIGINT, and a replica opened over the quiet store answers 16 recalls as
+    the served user does and exits 0; ``cli fsck`` says the stopped store is
+    ok, ``cli fsck --repair`` of a damaged copy reports as the twin's; and
+    ``cli serve`` reopens the stopped store quietly and exits 0 on SIGINT."""
     import chip_smoke as cs
 
     script = tmp_path / "phase.py"
@@ -530,20 +593,36 @@ def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
     (tmp_path / "work").mkdir()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONHASHSEED"] = "0"
+    # the phase starts a twin, two replicas and three cli processes: few
+    # threads each, beside the other test workers
+    env["OMP_NUM_THREADS"] = "2"
     res = subprocess.run([sys.executable, str(script), str(tmp_path / "data"),
                           str(tmp_path / "work")], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     rec = json.loads(res.stdout.strip().splitlines()[-1])
     assert rec["phase"] == "server" and rec["memories_before"] == 324
-    assert 324 < rec["memories_after"] <= 324 + 64 + 3
+    assert 324 < rec["memories_after"] <= 324 + 64 + 3 + 24 + 1
+    assert rec["memories_final"] == rec["memories_after"] + 2  # the fleet's and the replica's
     assert rec["tour_requests"] == len(tour.steps("."))
-    assert rec["tour_status"] == {"200": 258, "404": 9, "400": 8, "422": 1}
+    assert rec["tour_status"] == {"200": 271, "404": 9, "400": 12, "422": 1, "401": 1, "101": 2}
     assert rec["twin_checked"] == {"health_index": 1, "recall": 3, "staged": 8, "ab_create": 1,
                                    "ab_start": 1, "ab_pause": 1, "batch": 1,
                                    "remember": 3, "proactive": 2, "ipc_remember": 1,
                                    "ipc_recall": 1, "http_remember": 1, "http_recall": 1,
-                                   "tour": rec["tour_requests"]}
+                                   "stream": 1, "monitor": 1, "fleet_remember": 1,
+                                   "fleet_recall": 1, "fleet_http_recall": 1,
+                                   "tour": rec["tour_requests"],
+                                   "stream_memories": rec["stream"]["memories_flushed"]}
+    assert rec["stream"]["flushes"] == 2 and rec["stream"]["ack_ms"]["calls"] == 24
+    assert rec["monitor"]["event"]["action"] == "remember"
+    replica = rec["replica"]  # the one that followed the writer, then one for the answers
+    assert replica["exit"] == 0 and replica["answers"]["exit"] == 0
+    assert replica["answers"]["answers_equal"] == 16
+    assert replica["indexed_rows"] == replica["writer_rows"] >= rec["memories_final"]
+    assert rec["fsck"] == {"exit": 0, "s": rec["fsck"]["s"], "ok": True,
+                           "memories": rec["memories_final"]}
+    assert rec["fsck_repair"]["ok"] and rec["fsck_repair"]["equal_to_twin"]
     assert set(rec["staged_ms_by_shape"]) == set(cs.SERVER_STAGED)
     assert rec["concurrency"]["n"] == 3 and rec["concurrency"]["c3_rps"] > 0
     assert rec["cli_serve"]["exit"] == 0 and rec["cli_serve"]["health"] == 200

@@ -8,7 +8,10 @@ The served user's index holds 65,536 seeded rows before the requests (the
 device search, and so K1, takes over past 65,536 rows), so interference's
 batched search on ``/api/batch_remember`` and ``/api/remember``, the staged
 recall's vector leg and ``/api/proactive_context`` all launch K1. Every
-reply equals a CPU server's over the same rows and requests.
+reply equals a CPU server's over the same rows and requests. So do the
+replies and stored memories of an ``/api/stream`` session over the same
+index (K1 in its flushes' searches), and the answers of a ``FollowerReader``
+on the card against one on the CPU after a refresh and a resync.
 """
 
 from __future__ import annotations
@@ -104,3 +107,92 @@ def test_served_path_launches_k1_and_equals_the_cpu(tmp_path, monkeypatch):
     # dropping the user gives its device memory back (the index alone is
     # 65,604 x 384 f32 rows, about 100 MB)
     assert held - freed > ROWS * 384 * 4 // 2, (held, freed)
+
+
+def _stream(tmp_path, device, monkeypatch):
+    """A 45-turn ``/api/stream`` session over the same seeded index on
+    ``device``: the replies, the stored memories and K1's launches."""
+    rng = np.random.default_rng(5)
+    monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(bytes=rng.bytes(16), version=4))
+    monkeypatch.setenv("SHODH_API_KEYS", "card-key")
+    manager = MultiUserMemoryManager(tmp_path / f"stream-{device}", device=device)
+    server = web.BackgroundServer(app_mod.make_app(manager))
+    try:
+        system = manager.get_user_memory("card")
+        rows = np.random.default_rng(7).standard_normal((ROWS, system.index.dim), np.float32)
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        system.index.add(rows)
+        system.index.flush()
+        fused_topk.groupmax_scores.launches = 0
+        pin_now(NOW)
+        try:
+            status, replies = tour.ws_session(
+                "127.0.0.1", server.port, "/api/stream", KEY,
+                tour.stream_frames(tour.stream_messages(45)))
+        finally:
+            pin_now(None)
+        launches = fused_topk.groupmax_scores.launches
+        ids = [i for m in replies if m.get("type") == "flushed" for i in m["memory_ids"]]
+        stored = [system.get(i).to_dict() for i in ids]
+        del system
+    finally:
+        server.stop()
+        manager.close()
+    return status, replies, stored, launches
+
+
+@pytest.mark.cuda
+def test_stream_session_on_the_card_launches_k1_and_equals_the_cpu(tmp_path, monkeypatch):
+    _need_cuda()
+    card = _stream(tmp_path, "cuda", monkeypatch)
+    cpu = _stream(tmp_path, "cpu", monkeypatch)
+    assert card[0] == cpu[0] == 101
+    assert not tour.differences(card[1], cpu[1]), tour.differences(card[1], cpu[1])
+    assert not tour.differences(card[2], cpu[2]), tour.differences(card[2], cpu[2])
+    assert sum(m.get("type") == "flushed" for m in card[1]) == 3
+    assert card[3] > 0  # interference's searches of the flushed memories
+
+
+@pytest.mark.cuda
+def test_follower_refresh_and_recall_on_the_card_equal_the_cpu(tmp_path):
+    """A writer's store of ``chip_smoke.py``'s seeded conversation turns, a
+    follower on the card and one on the CPU over it: the refresh applies the
+    writer's next batch on both, and every answer, and a row-aligned resync
+    after the writer's rebuild, agree. (The route tour's 96 templated turns
+    give pools with fused values one ulp apart on the CPU and equal on the
+    card, and the epilogue's PRF cut then moves the scores of ranks 2-5 by
+    up to 0.3%: ROADMAP.md section 3, R20, ``tools/torch_pool_ties.py``.)"""
+    _need_cuda()
+    import chip_smoke as cs
+    from shodh_tpu_torch.engine.follower import FollowerReader
+    from shodh_tpu_torch.engine.memory_system import MemorySystem
+    from shodh_tpu_torch.types import Query
+
+    pin_now(NOW)
+    try:
+        writer = MemorySystem(tmp_path / "store", device="cpu")
+        mems = [m.experience for m in cs.make_memories(96, seed=11)]
+        writer.batch_remember(mems[:64])
+        writer.flush()
+        followers = {d: FollowerReader(tmp_path / "store", device=d) for d in ("cuda", "cpu")}
+        writer.batch_remember(mems[64:])
+        writer.flush()
+        applied = {d: f.refresh() for d, f in followers.items()}
+        assert applied == {"cuda": 32, "cpu": 32}
+        assert followers["cuda"].system.index.device.type == "cuda"
+        assert len(followers["cuda"].system.index) == len(writer.index)
+        for text in cs.leg_queries(6, 13):
+            got = followers["cuda"].recall(Query(query_text=text, max_results=5))
+            want = followers["cpu"].recall(Query(query_text=text, max_results=5))
+            assert got.ids == want.ids
+            np.testing.assert_allclose([m.score for m in got.memories],
+                                       [m.score for m in want.memories], rtol=1e-5, atol=1e-7)
+        writer.rebuild_index()
+        writer.flush()
+        assert followers["cuda"].refresh() == 1  # a row-aligned resync on the card
+        assert followers["cuda"].system.index.device.type == "cuda"
+        for f in followers.values():
+            f.close()
+        writer.close()
+    finally:
+        pin_now(None)

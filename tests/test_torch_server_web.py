@@ -20,7 +20,6 @@ import shodh_tpu_torch.server.app as port_app
 from shodh_tpu.server.state import MultiUserMemoryManager as RefManager
 from shodh_tpu_torch.server import web
 from shodh_tpu_torch.server.state import MultiUserMemoryManager as PortManager
-from test_torch_server import DEFERRED_ROUTES
 
 
 # ---------------------------------------------------------------------------
@@ -74,19 +73,11 @@ def _port_match(app, method, path):
 @pytest.mark.parametrize("method", ["GET", "HEAD", "POST", "DELETE", "PUT"])
 def test_routing_equals_aiohttp(routers, method):
     ref, port = routers
-    deferred = {path for _, path in DEFERRED_ROUTES}
     checked = 0
     for path in _probe_paths(ref):
-        if path in deferred:
-            continue
         want = _aiohttp_match(ref, method, path)
-        if len(want) == 3 and (want[0], want[1]) in DEFERRED_ROUTES:
-            continue
         got = _port_match(port, method, path)
         checked += 1
-        if got[0] == 405 and want[0] == 405:  # the deferred routes' methods drop out
-            assert set(got[1]) <= set(want[1]), (method, path)
-            continue
         assert got == want, (method, path)
     assert checked > 200
 

@@ -9,16 +9,26 @@ package's server and the port's; each side reads the ids it needs
 
 A step is ``Step(group, method, path, body, ...)``: ``path`` and the strings
 in ``body`` are formatted with the values saved so far (``{todo}``), ``now``
-pins the scoring clock for the step, and ``kind`` is ``"http"``, ``"head"``
-(the same route's HEAD: no body) or ``"sse"`` (open the stream, send
-``trigger``, read the first event).
+pins the scoring clock for the step, ``env`` sets environment variables
+around it (the webhook secrets), ``headers`` adds request headers (the
+webhook signatures), and ``kind`` is ``"http"``, ``"head"`` (the same
+route's HEAD: no body), ``"sse"`` (open the stream, send ``trigger``, read
+the first event) or ``"ws"`` (a WebSocket session: send ``frames``, each
+with the number of replies it gets, or open the feed, send ``trigger`` and
+read its first event; see ``ws_session``).
+
+The pull-sync steps reach no network: whoever runs the tour replaces the
+servers' ``integrations_sync.fetch_json`` with ``canned_fetch``.
 """
 
 from __future__ import annotations
 
+import hashlib
+import hmac
 import http.client
 import json
 import math
+import os
 import re
 import socket
 import time
@@ -46,7 +56,81 @@ class Step:
     user: Optional[str] = ""  # X-User-ID ("" = the tour's user, None = no header)
     now: Optional[datetime] = None  # pins the scoring clock (default TOUR_NOW)
     kind: str = "http"
-    trigger: Optional["Step"] = None  # for "sse": the request whose audit event it reads
+    trigger: Optional["Step"] = None  # for "sse" and "ws": the request whose event it reads
+    env: dict = field(default_factory=dict)  # environment variables around the step
+    headers: dict = field(default_factory=dict)  # more request headers
+    frames: list = field(default_factory=list)  # for "ws": (JSON message, replies) pairs
+
+
+GITHUB_SECRET = "tour-github-secret"
+LINEAR_SECRET = "tour-linear-secret"
+GITHUB_PR = {"action": "closed",
+             "pull_request": {"merged": True, "title": "Add retries to the kafka consumer",
+                              "body": "retries with backoff", "html_url": "https://example.org/pr/1",
+                              "user": {"login": "dana"}},
+             "repository": {"full_name": "acme/backend"}}
+GITHUB_ISSUE = {"action": "opened", "issue": {"title": "Cache warmup is slow", "body": "",
+                                              "html_url": "https://example.org/i/2",
+                                              "user": {"login": "ravi"}},
+                "repository": {"full_name": "acme/backend"}}
+LINEAR_ISSUE = {"type": "Issue", "action": "create",
+                "data": {"title": "Book the museum for the offsite", "state": {"name": "Todo"},
+                         "url": "https://example.org/l/3", "assignee": {"name": "Melanie"}}}
+MEM0_EXPORT = [{"id": "m1", "memory": "user prefers dark mode in the dashboard",
+                "metadata": {"category": "preference"}, "created_at": "2026-01-01T00:00:00Z",
+                "user_id": "u"},
+               {"id": "m2", "memory": "user is allergic to peanuts",
+                "created_at": "2026-01-02T00:00:00Z", "user_id": "u"}]
+MIF_DOCUMENT = {
+    "mif_version": "2.0",
+    "generator": {"name": "shodh-memory", "version": "0.9.0"},
+    "export_meta": {"id": "11111111-1111-5111-8111-111111111111",
+                    "created_at": "2026-01-02T00:00:00Z", "user_id": "u1", "checksum": "x"},
+    "memories": [{"id": "22222222-2222-5222-8222-222222222222",
+                  "content": "Bob deployed the staging cluster", "memory_type": "decision",
+                  "created_at": "2026-01-01T00:00:00Z", "tags": ["ops"],
+                  "entities": [{"name": "Bob", "entity_type": "person", "confidence": 1.0}],
+                  "metadata": {"k": "v"}, "version": 1}],
+}
+
+
+def signed(body: dict, secret: str, github: bool) -> dict:
+    """The signature header of ``body`` as the client sends it (``json.dumps``)."""
+    mac = hmac.new(secret.encode(), json.dumps(body).encode(), hashlib.sha256).hexdigest()
+    return {"X-Hub-Signature-256": f"sha256={mac}"} if github else {"Linear-Signature": mac}
+
+
+def canned_fetch(url: str, headers: dict, data: Optional[bytes] = None):
+    """``integrations_sync.fetch_json`` for the tour: canned GitHub and Linear
+    answers, and an unreachable host for the repository ``down``."""
+    if "/repos/acme/down/" in url:
+        raise OSError("no route to host")
+    if "api.github.com" in url:
+        return [{"id": 1, "number": 7, "title": "Fix the cache race", "state": "open",
+                 "body": "details", "labels": [{"name": "bug"}], "user": {"login": "ravi"},
+                 "html_url": "https://example.org/7"},
+                {"id": 2, "number": 8, "title": "Kafka failover runbook", "state": "closed",
+                 "body": "", "labels": [], "user": {"login": "dana"},
+                 "html_url": "https://example.org/8", "pull_request": {"url": "x"}}]
+    return {"data": {"issues": {"nodes": [
+        {"identifier": "ENG-1", "title": "Ship the offsite plan", "description": "venues",
+         "url": "https://example.org/l", "state": {"name": "Todo"}}]}}}
+
+
+def stream_messages(n: int, speakers=SPEAKERS, topics=TOPICS) -> list:
+    """``n`` conversation turns for ``/api/stream``, a mode switch to
+    ``event`` after the first half and back, then a manual flush."""
+    out = []
+    for i in range(n):
+        who, topic = speakers[i % len(speakers)], topics[(i * 5) % len(topics)]
+        if i == n // 2:
+            out.append({"type": "mode", "mode": "event"})
+        out.append({"type": "message", "role": "assistant" if i % 7 == 3 else "user",
+                    "content": f"{who}: we decided to move the {topic} work to week {i}. "
+                               f"The {topic} check failed with an error on run {i}."})
+    out.append({"type": "mode", "mode": "conversation"})
+    out.append({"type": "flush"})
+    return out
 
 
 def tour_memories(n: int = 24) -> list[dict]:
@@ -72,7 +156,8 @@ def steps(scan_dir: str) -> list[Step]:
     def add(group, method, path, body=None, head=False, **kw):
         s.append(Step(group, method, path, body, **kw))
         if head:
-            s.append(Step(group, "HEAD", path, None, kind="head", user=kw.get("user", "")))
+            s.append(Step(group, "HEAD", path, None, kind="head", user=kw.get("user", ""),
+                          env=kw.get("env", {}), headers=kw.get("headers", {})))
 
     # -- probes and the process ------------------------------------------------
     for path in ("/health", "/health/live", "/health/ready", "/version", "/dashboard", "/",
@@ -320,6 +405,38 @@ def steps(scan_dir: str) -> list[Step]:
     add(g, "POST", "/api/storage/migrate", {}, user="{user}-migrate")
     add(g, "GET", "/metrics", head=True)
 
+    # -- webhooks, pull sync, MIF interchange and fsck -----------------------------------------
+    g = "interchange"
+    gh_env = {"SHODH_GITHUB_WEBHOOK_SECRET": GITHUB_SECRET}
+    lin_env = {"SHODH_LINEAR_WEBHOOK_SECRET": LINEAR_SECRET}
+    add(g, "POST", "/webhook/github?user_id={user}", GITHUB_PR, env=gh_env,
+        headers={"X-GitHub-Event": "pull_request", **signed(GITHUB_PR, GITHUB_SECRET, True)})
+    add(g, "POST", "/webhook/github?user_id={user}", GITHUB_ISSUE, env=gh_env,
+        headers={"X-GitHub-Event": "issues", "X-Hub-Signature-256": "sha256=00"})
+    add(g, "POST", "/webhook/linear?user_id={user}", LINEAR_ISSUE, env=lin_env,
+        headers=signed(LINEAR_ISSUE, LINEAR_SECRET, False))
+    add(g, "POST", "/api/sync/github", {"token": "t", "owner": "acme", "repo": "backend"})
+    add(g, "POST", "/api/sync/github", {"owner": "acme", "repo": "backend"})
+    add(g, "POST", "/api/sync/linear", {"token": "t", "limit": 5})
+    add(g, "GET", "/api/export/mif", head=True)
+    add(g, "GET", "/api/mif/adapters", head=True)
+    add(g, "POST", "/api/import/mif", {"document": MIF_DOCUMENT}, user="{user}-mif")
+    add(g, "POST", "/api/import/auto", MEM0_EXPORT, user="{user}-mif")
+    add(g, "POST", "/api/import/auto?format=nope", MEM0_EXPORT, user="{user}-mif")
+    add(g, "GET", "/api/export/mif", user="{user}-mif")
+    add(g, "POST", "/api/store/fsck", {})
+    add(g, "POST", "/api/store/fsck", {"repair": True})
+
+    # -- the WebSocket routes: a stream session, then the feed of a remember ----------------
+    g = "websocket"
+    s.append(Step(g, "GET", "/api/stream", kind="ws", frames=stream_frames(stream_messages(23))))
+    s.append(Step(g, "HEAD", "/api/stream", kind="head"))
+    s.append(Step(g, "GET", "/api/context/monitor", kind="ws",
+                  trigger=Step(g, "POST", "/api/remember",
+                               {"content": "the monitor feed carries this remember",
+                                "created_at": TOUR_NOW.isoformat()})))
+    s.append(Step(g, "HEAD", "/api/context/monitor", kind="head"))
+
     # -- the event streams (each reads the audit event of its trigger) ------------------------
     g = "events"
     for path in ("/api/events/sse", "/api/events", "/api/context/sse"):
@@ -353,7 +470,8 @@ def steps(scan_dir: str) -> list[Step]:
 
 
 GROUPS = ("probes", "memories", "graph", "facts_lineage", "reminders", "todos_projects",
-          "sessions_files", "context", "ab", "maintenance", "events", "backup_users")
+          "sessions_files", "context", "ab", "maintenance", "interchange", "websocket", "events",
+          "backup_users")
 
 
 def _fill(value, saved: dict):
@@ -379,31 +497,50 @@ class Missing(dict):
         return f"missing-{key}"
 
 
+def _env(values: dict):
+    """Set (or, for None, unset) environment variables; returns the old values."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
 def run_tour(send: Callable, stream: Callable, pin: Callable, tour: list[Step], user: str,
-             headers: dict, on_step: Optional[Callable] = None) -> list[dict]:
+             headers: dict, on_step: Optional[Callable] = None,
+             ws: Optional[Callable] = None) -> list[dict]:
     """Run ``tour`` through ``send(method, path, body, headers) -> (status,
-    payload)`` and ``stream(path, headers, trigger) -> (status, event)``,
-    pinning the clock with ``pin(datetime or None)`` around each step.
-    Returns one record per step: group, method, path (as sent), status and
-    the reply (parsed JSON, or text; None for HEAD)."""
+    payload)``, ``stream(path, headers, trigger) -> (status, event)`` and
+    ``ws(path, headers, frames, trigger) -> (status, messages)``, pinning the
+    clock with ``pin(datetime or None)`` around each step. Returns one record
+    per step: group, method, path (as sent), status and the reply (parsed
+    JSON, or text; None for HEAD; the messages of a WebSocket session)."""
     saved: dict = Missing(user=user)
     out = []
     try:
         for st in tour:
             pin(st.now or TOUR_NOW)
-            hdrs = dict(headers)
+            hdrs = {**headers, **st.headers}
             if st.user is not None:
                 hdrs["X-User-ID"] = _fill(st.user, saved) or user
             path = _fill(st.path, saved)
             body = _fill(st.body, saved)
-            if st.kind == "sse":
-                trig = st.trigger
-                status, payload = stream(path, hdrs, (trig.method, _fill(trig.path, saved),
-                                                      _fill(trig.body, saved)))
-            else:
-                status, payload = send(st.method, path, body, hdrs)
-                if st.kind == "head":
-                    payload = None
+            trig = st.trigger
+            trig = trig and (trig.method, _fill(trig.path, saved), _fill(trig.body, saved))
+            old = _env(st.env)
+            try:
+                if st.kind == "sse":
+                    status, payload = stream(path, hdrs, trig)
+                elif st.kind == "ws":
+                    status, payload = ws(path, hdrs, st.frames, trig)
+                else:
+                    status, payload = send(st.method, path, body, hdrs)
+                    if st.kind == "head":
+                        payload = None
+            finally:
+                _env(old)
             for name, dotted in st.save.items():
                 try:
                     val = _dig(payload, dotted)
@@ -590,8 +727,185 @@ def sse_first_event(host: str, port: int, path: str, headers: dict, trigger: Cal
         sock.close()
 
 
-def http_runner(url: str) -> tuple[Callable, Callable, HttpClient]:
-    """``send`` and ``stream`` for ``run_tour`` against a server at ``url``."""
+class WsClient:
+    """A WebSocket client (RFC 6455) on a plain socket: the handshake with a
+    fresh key (checked against ``Sec-WebSocket-Accept``), masked frames out,
+    frames in. ``status`` is the handshake's HTTP status; on anything but
+    101 ``body`` holds the reply's body and the socket is closed."""
+
+    def __init__(self, host: str, port: int, path: str, headers: dict,
+                 timeout: float = 60.0):
+        import base64
+        import os
+
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+        self.buf = b""
+        key = base64.b64encode(os.urandom(16)).decode()
+        head = [f"GET {path} HTTP/1.1", f"Host: {host}:{port}", "Upgrade: websocket",
+                "Connection: Upgrade", f"Sec-WebSocket-Key: {key}",
+                "Sec-WebSocket-Version: 13"]
+        head += [f"{k}: {v}" for k, v in headers.items()]
+        self.sock.sendall(("\r\n".join(head) + "\r\n\r\n").encode())
+        while b"\r\n\r\n" not in self.buf:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("the server closed during the handshake")
+            self.buf += chunk
+        raw, self.buf = self.buf.split(b"\r\n\r\n", 1)
+        lines = raw.decode("latin-1").split("\r\n")
+        self.status = int(lines[0].split(" ", 2)[1])
+        self.headers = {k.strip().lower(): v.strip() for k, _, v in
+                        (ln.partition(":") for ln in lines[1:])}
+        self.body = None
+        if self.status != 101:
+            n = int(self.headers.get("content-length", "0"))
+            while len(self.buf) < n:
+                chunk = self.sock.recv(65536)
+                if not chunk:
+                    break
+                self.buf += chunk
+            self.body = parse_reply(self.buf[:n])
+            self.sock.close()
+            return
+        from shodh_tpu_torch.server.web import accept_key
+
+        if self.headers.get("sec-websocket-accept") != accept_key(key):
+            raise AssertionError("bad Sec-WebSocket-Accept")
+
+    def _read(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("the server closed the WebSocket")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def send_frame(self, payload: bytes, opcode: int = 0x1, fin: bool = True,
+                   masked: bool = True) -> None:
+        import os
+
+        from shodh_tpu_torch.server.web import ws_frame
+
+        self.sock.sendall(ws_frame(payload, opcode, fin=fin,
+                                   mask=os.urandom(4) if masked else None))
+
+    def send_json(self, obj) -> None:
+        self.send_frame(json.dumps(obj).encode(), 0x1)
+
+    def recv_frame(self) -> tuple[int, bytes]:
+        """(opcode, payload) of the next frame; server frames are not masked."""
+        import struct
+
+        b0, b1 = self._read(2)
+        n = b1 & 0x7F
+        if n == 126:
+            (n,) = struct.unpack("!H", self._read(2))
+        elif n == 127:
+            (n,) = struct.unpack("!Q", self._read(8))
+        return b0 & 0x0F, self._read(n)
+
+    def recv_json(self):
+        """The next text message, parsed (pings are answered on the way)."""
+        while True:
+            op, payload = self.recv_frame()
+            if op == 0x9:
+                self.send_frame(payload, 0xA)
+                continue
+            if op == 0x1:
+                return json.loads(payload)
+            raise AssertionError(f"expected a text frame, got opcode {op}: {payload[:80]!r}")
+
+    def close(self, code: int = 1000, wait: Optional[float] = None) -> Optional[int]:
+        """Send a close frame; return the code of the server's, or None if
+        none came (within ``wait`` seconds, if given)."""
+        import struct
+
+        try:
+            self.send_frame(struct.pack("!H", code), 0x8)
+            if wait is not None:
+                self.sock.settimeout(wait)
+            while True:
+                op, payload = self.recv_frame()
+                if op == 0x8:
+                    return struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else None
+        except (ConnectionError, OSError):
+            return None
+        finally:
+            self.sock.close()
+
+
+FEED_CLOSE_WAIT_S = 1.0  # the feed never reads, so never answers a client's close
+
+
+def ws_session(host: str, port: int, path: str, headers: dict, frames: list,
+               trigger: Optional[Callable] = None, expect: int = 0,
+               timeout: float = 60.0) -> tuple[int, Any]:
+    """One WebSocket session at ``path``. ``frames`` is a list of (JSON
+    message, number of replies it gets): each is sent and its replies read.
+    With ``trigger``, it is called once the socket is open (the monitor's
+    remember) and ``expect`` more messages are read. Returns (101, the
+    messages, then ``{"close": code}``: the code of the server's answer to
+    the client's close frame, or None when none came; the feed does not read
+    its socket, so the client waits only ``FEED_CLOSE_WAIT_S`` for it). A
+    refused handshake gives (status, its body)."""
+    ws = WsClient(host, port, path, headers, timeout=timeout)
+    if ws.status != 101:
+        return ws.status, ws.body
+    out = []
+    try:
+        for frame, n_replies in frames:
+            ws.send_json(frame)
+            out.extend(ws.recv_json() for _ in range(n_replies))
+        if trigger is not None:
+            # the handler subscribes once its 101 is out: an event sent before
+            # that is not the feed's, so the trigger is sent again
+            ws.sock.settimeout(5.0)
+            for attempt in range(3):
+                time.sleep(0.05)
+                trigger()
+                try:
+                    out.append(ws.recv_json())
+                    break
+                except socket.timeout:
+                    if attempt == 2:
+                        raise
+            ws.sock.settimeout(timeout)
+        while len(out) < expect:
+            out.append(ws.recv_json())
+    finally:
+        code = ws.close(wait=FEED_CLOSE_WAIT_S if trigger is not None else None)
+    return 101, out + [{"close": code}]
+
+
+def stream_frames(messages: list, flush_events: int = 20, flush_chars: int = 4000) -> list:
+    """``ws_session``'s frames for ``/api/stream``: each message of
+    ``messages`` (a JSON frame) with the number of replies it gets from
+    ``server/streaming.py``'s protocol, tracked on the client's side: an ack,
+    and a ``flushed`` reply after a message that fills the buffer
+    (``FLUSH_EVENTS`` messages or ``FLUSH_CHARS`` characters) or after a
+    ``flush`` of a buffer that holds something; a ``mode`` frame gets its
+    ack. The time trigger (30 s) is not modelled: a session stays under it."""
+    out, count, chars = [], 0, 0
+    for m in messages:
+        kind = m.get("type", "message")
+        if kind == "mode":
+            out.append((m, 1))
+        elif kind == "flush":
+            out.append((m, 1 if count else 0))
+            count = chars = 0
+        else:
+            count += 1
+            chars += len(m.get("content", ""))
+            full = count >= flush_events or chars >= flush_chars
+            out.append((m, 2 if full else 1))
+            if full:
+                count = chars = 0
+    return out
+
+
+def http_runner(url: str) -> tuple[Callable, Callable, Callable, HttpClient]:
+    """``send``, ``stream`` and ``ws`` for ``run_tour`` against a server at ``url``."""
     client = HttpClient(url)
 
     def send(method, path, body, headers):
@@ -602,4 +916,12 @@ def http_runner(url: str) -> tuple[Callable, Callable, HttpClient]:
         return sse_first_event(client.host, client.port, path, headers,
                                lambda: client.request(method, tpath, tbody, headers))
 
-    return send, stream, client
+    def ws(path, headers, frames, trig):
+        trigger = None
+        if trig is not None:
+            method, tpath, tbody = trig
+            trigger = lambda: client.request(method, tpath, tbody, headers)  # noqa: E731
+        return ws_session(client.host, client.port, path, headers, frames, trigger,
+                          expect=1 if trig is not None else 0)
+
+    return send, stream, ws, client
