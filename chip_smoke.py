@@ -83,7 +83,8 @@ Phases, each printing one JSON line:
    semantic model, ``save``, ``close`` and a reopen of both with one recall
    compared; and K1 at the ingest's and the staged leg's shape (B=8 over
    the phase's index) against its plain version, with its time, bound and
-   library time;
+   library time. Once the card's side has closed its store, phase 10 runs
+   beside the end of the twin and the comparison with it;
 9. ``eval`` (run before phase 8, so that nothing runs beside it): ``python
    -m shodh_tpu_torch.cli eval`` of the ``smoke`` and ``locomo-gate``
    suites over the whole layer ladder on the card, each in its own process;
@@ -122,14 +123,32 @@ Phases, each printing one JSON line:
     side with the served user's readonly answers at one pinned clock and
     equal to them, then exits 0 on SIGINT (R21); the server stops as
     SIGINT would; a CPU twin replays the same requests in a process of its
-    own over a copy taken first, and every reply and the stream's stored
+    own over a copy taken first, beside the card's side, and every reply and
+    the stream's stored
     memories must equal it; then three processes at once over the stopped
     store: ``python -m shodh_tpu_torch.cli serve`` on the card answers
     ``/health``, reopens the user without healing and exits 0 on SIGINT;
     ``cli fsck`` on the card says the served store is ok; ``cli fsck
     --repair`` on the card repairs a copy of the tour's MIF user with a lost
     row-map entry (a fresh text index on the card) and reports as the twin's
-    repair does;
+    repair does. Its clients step (``tools/client_tour.py``), inside the
+    server's session so that the twin runs it too: after the tour, the
+    SDK's calls over HTTP and an add and a search over IPC (held to HTTP's)
+    for small users, and ``python -m shodh_tpu_torch.cli`` ``remember``
+    (K1 on its path), ``recall``, ``stats``, ``status`` on the served user
+    and ``maintenance`` on a small one, each a process; while the answers'
+    replica opens, the MCP server in process on the card (a call of every
+    tool), one stdio session of ``python -m
+    shodh_tpu_torch.clients.mcp_server`` (exit 0), the dashboard's
+    ``App`` driven by a fixed key sequence (rows at 100 x 30) and embedded
+    ``Memory``; every reply equal to the twin's, no MCP tool error on the
+    card alone;
+10b. ``clients``: the step's seconds, replies checked and K1 launches, and
+    the scaffolding subcommands, run on the card's side only while the
+    answers' replica opens: ``doctor`` (it names the card), ``version``,
+    ``init`` twice and ``setup-models --skip-parity`` (exit 0 over a
+    safetensors checkpoint the script writes from ``init_params``, 1 offline
+    over an empty directory), each a process;
 11. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
@@ -143,6 +162,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import io
 import json
 import multiprocessing
 import os
@@ -2297,7 +2317,7 @@ def drive_system(root, device, snapshot_dir, n=N_SYSTEM, n_calls=SYSTEM_RECALLS,
 
 
 def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, k=ENGINE_K,
-                 seed=SEED, expect_k1=True, n_staged=STAGED_RECALLS, after_card=None) -> dict:
+                 seed=SEED, expect_k1=True, n_staged=STAGED_RECALLS, beside_twin=None) -> dict:
     """``MemorySystem`` on ``device`` over the engine phase's store under
     ``root`` (made quiet by ``make_store_quiet``), then a CPU twin in a
     process of its own over a copy of the store under ``work`` (the same
@@ -2310,8 +2330,12 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
     row by kv row, the index's host arrays bit for bit, the saved semantic
     models byte for byte, every recall's answer (ids in order, scores rtol
     1e-5, atol 1e-7) and diagnostics, the maintenance reports, and the
-    recalls after the maintenance and the reopen. ``after_card`` is called
-    once the card's side has closed its store, before the twin is awaited."""
+    recalls after the maintenance and the reopen. Once the card's side has
+    closed its store, a copy of it is kept for the comparison, which a
+    thread runs as soon as the twin is done, and ``beside_twin`` (if given)
+    runs meanwhile: it may write to the store under ``root``. The record's
+    ``twin_wait_s`` is the time from the card's close to the twin's end,
+    ``phase_s`` the time from the start to the comparison's end."""
     import shutil
     from pathlib import Path
 
@@ -2320,7 +2344,8 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
     twin_root = work / Path(root).name  # the same name: the A/B subject
     shutil.copytree(root, twin_root)
     spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool, \
+            concurrent.futures.ThreadPoolExecutor(1) as waiter:
         twin_job = []
 
         def start_twin():
@@ -2330,13 +2355,22 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
 
         rec = drive_system(root, device, work / "card_ingest", n, n_calls, k, seed, card=True,
                            expect_k1=expect_k1, after_recall=start_twin, n_staged=n_staged)
-        if after_card is not None:
-            after_card()  # the card's side is done and its store closed
-        t1 = time.perf_counter()
-        twin = twin_job[0].result()
-        rec["twin_wait_s"] = time.perf_counter() - t1
-    rec = {"phase": "system", "experiences": n, "call": SYSTEM_CALL, "recalls": n_calls, "k": k,
-           **rec}
+        rec = {"phase": "system", "experiences": n, "call": SYSTEM_CALL, "recalls": n_calls,
+               "k": k, **rec}
+        closed = work / "card_closed"  # the card's store as its side left it
+        shutil.copytree(root, closed)
+        held = waiter.submit(_system_vs_twin, rec, twin_job[0], closed, twin_root, work, t0)
+        if beside_twin is not None:
+            beside_twin()
+        return held.result()
+
+
+def _system_vs_twin(rec: dict, twin_job, closed, twin_root, work, t0: float) -> dict:
+    """Phase 8's comparison of the card's side (``rec``, its closed store
+    copied to ``closed``) with the twin's, once ``twin_job`` is done."""
+    t1 = time.perf_counter()
+    twin = twin_job.result()
+    rec["twin_wait_s"] = time.perf_counter() - t1
     if twin["texts"] != rec["texts"]:
         raise AssertionError("system: the twin drew other recall queries")
     for got, want in zip(rec.pop("answers"), twin.pop("answers")):
@@ -2366,7 +2400,7 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
               "stores_after_recall": (work / "card_ingest_recall", work / "twin_ingest_recall"),
               "stores_after_maintenance": (work / "card_ingest_maintenance",
                                            work / "twin_ingest_maintenance"),
-              "stores_after_close": (root, twin_root)}
+              "stores_after_close": (closed, twin_root)}
     # one sqlite connection per thread: the joins run in sqlite, off the GIL
     with concurrent.futures.ThreadPoolExecutor(len(stages)) as pool:
         compared = {stage: pool.submit(compare_stores, *dirs) for stage, dirs in stages.items()}
@@ -2379,7 +2413,7 @@ def phase_system(root, work, device="cuda", n=N_SYSTEM, n_calls=SYSTEM_RECALLS, 
             rec[stage] = job.result()
     for suffix in (".json", ".npz"):
         name = f"semantic_model{suffix}"
-        if (Path(root) / name).read_bytes() != (twin_root / name).read_bytes():
+        if (closed / name).read_bytes() != (twin_root / name).read_bytes():
             raise AssertionError(f"system: the saved {name} differs from the twin's")
     rec["compare_s"] = time.perf_counter() - t1
     twin.pop("texts")
@@ -3317,6 +3351,378 @@ def fsck_repair(data_dir, work, device, user: str = "tour-mif") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10's clients step: the SDK, the client subcommands, the MCP server,
+# the terminal dashboard and embedded mode (``tools/client_tour.py``)
+# ---------------------------------------------------------------------------
+
+CLIENT_USER = "sdk"  # a small user of the served data dir: the SDK's calls, `cli maintenance`
+CLIENT_MEMORIES = 24  # the MCP, TUI and embedded stores' seed: server_tour.tour_memories
+# each part of the step draws the uuid4 ids it mints (todos, projects,
+# reminders, sessions) from a sequence of its own, the same on both sides
+CLIENT_SEED = 16381
+
+
+def clients_now():
+    """The clients step's clock: after the server script's last step (three
+    days past the store, a few hours of turns), before the replica's and
+    the fleet's compare clock (four days past)."""
+    from datetime import timedelta
+
+    return engine_now() + timedelta(days=3, hours=12)
+
+
+def _pinned(at, fn):
+    from shodh_tpu_torch.utils.clock import pin_now
+
+    pin_now(at)
+    try:
+        return fn()
+    finally:
+        pin_now(None)
+
+
+def _relay(conn, port: int) -> None:
+    """Pass one client connection to the server at ``port`` and back, until
+    both sides are done."""
+    import socket
+    import threading
+
+    up = socket.create_connection(("127.0.0.1", port))
+
+    def pump(src, dst, done):
+        try:
+            while data := src.recv(1 << 16):
+                dst.sendall(data)
+        except OSError:
+            pass
+        done()
+
+    def client_done():
+        with contextlib.suppress(OSError):
+            up.shutdown(socket.SHUT_WR)
+
+    ahead = threading.Thread(target=pump, args=(conn, up, client_done))
+    ahead.start()
+    pump(up, conn, lambda: conn.close())
+    ahead.join(timeout=600)
+    up.close()
+
+
+def gated_processes(argvs: list, port: int, around=lambda j, fn: fn()) -> list:
+    """Every ``argvs[j]`` (``{url}`` in it replaced) started at once as a
+    process, each aimed at a relay of its own on 127.0.0.1 that holds the
+    connection it gets until the processes before it were answered, then
+    passes it to the server at ``port``: the processes start together (their
+    start-up overlaps) and their requests reach the server one by one, in
+    order. ``around(j, fn)`` runs process j's exchange ``fn`` (under the
+    clock's pin). Returns (exit code, stdout, stderr) per process."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    listeners, procs = [], []
+    try:
+        for argv in argvs:
+            ls = socket.create_server(("127.0.0.1", 0))
+            ls.settimeout(0.2)
+            listeners.append(ls)
+            url = f"http://127.0.0.1:{ls.getsockname()[1]}"
+            procs.append(subprocess.Popen([a.replace("{url}", url) for a in argv], cwd=root,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        for j, (ls, proc) in enumerate(zip(listeners, procs)):
+            deadline = time.perf_counter() + 600
+            while True:
+                try:
+                    conn, _ = ls.accept()
+                    break
+                except socket.timeout:
+                    if proc.poll() is not None or time.perf_counter() > deadline:
+                        raise AssertionError(f"gated process {j} sent no request: "
+                                             f"{proc.communicate()[1][-2000:]}")
+            around(j, lambda: _relay(conn, port))
+        outs = [proc.communicate(timeout=600) for proc in procs]
+        return [(proc.returncode, *out) for proc, out in zip(procs, outs)]
+    finally:
+        for ls in listeners:
+            ls.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def clients_served(port: int, sock, device, card: bool) -> dict:
+    """The clients of the running server, at ``clients_now()``: every SDK call
+    (``client_tour.sdk_calls``) over HTTP for user ``CLIENT_USER``; an add
+    and a search over the IPC socket against the same two over HTTP for
+    another user (equal but for session ids); then each of
+    ``client_tour.CLI_STEPS`` as a process of ``python -m shodh_tpu_torch.cli``
+    (``remember``, ``recall``, ``stats`` and ``status`` on the served user,
+    ``maintenance`` on ``CLIENT_USER``), all started at once and their
+    requests served in order (``gated_processes``), the clock pinned a
+    minute apart, each stdout recorded. On the card
+    K1's launches over the step are read: the remember into the served user
+    (past 65,536 rows) searches its index through K1. On the CPU (the twin,
+    the CPU rehearsal) the subcommands run in this process through
+    ``cli.main``, their stdout captured: the same requests and output, without
+    the processes' start-up."""
+    from datetime import timedelta
+
+    from shodh_tpu_torch import cli
+    from shodh_tpu_torch.clients import client as sdk
+    from tools import client_tour as ctour
+    from tools import server_tour as tour
+
+    now, url = clients_now(), f"http://127.0.0.1:{port}"
+    secs, replies = {}, []
+    uuid.uuid4 = SeededUuid4(CLIENT_SEED)  # drive_server restores the real one
+    if card:
+        reset_launches()
+    t0 = time.perf_counter()
+    m = sdk.Memory(url=url, api_key=SERVER_KEY, user_id=CLIENT_USER)
+    replies += [(f"sdk:{label}", reply)
+                for label, reply in ctour.sdk_calls(m, _pinned, sdk.ShodhError, now, "http")]
+    secs["sdk_http_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pair = []
+    for via, uid in (("ipc", "sdk-ipc"), ("http", "sdk-http")):
+        mm = (sdk.Memory(ipc=str(sock), user_id=uid) if via == "ipc"
+              else sdk.Memory(url=url, api_key=SERVER_KEY, user_id=uid))
+        pair.append(_pinned(now, lambda: [mm.add("the SDK sends this over both transports",
+                                                 tags=["transport"]),
+                                          mm.search("SDK transports", limit=ENGINE_K)]))
+        replies.append((f"sdk_{via}", pair[-1]))
+    diffs = [d for d in tour.differences(pair[0], pair[1]) if ".session_id" not in d]
+    if pair[0][0] != pair[1][0] or not pair[0][1] or diffs:
+        raise AssertionError(f"clients: the SDK's IPC replies differ from HTTP's: {diffs[:3]}")
+    secs["sdk_ipc_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    argvs = [[*args, "--url", "{url}", "--api-key", SERVER_KEY, "--user",
+              CLIENT_USER if label == "maintenance" else SERVER_USER]
+             for label, args in ctour.CLI_STEPS]
+    at = [now + timedelta(minutes=30 + j) for j in range(len(argvs))]
+    if str(device) != "cpu":
+        results = gated_processes([[sys.executable, "-m", "shodh_tpu_torch.cli", *argv]
+                                   for argv in argvs], port,
+                                  lambda j, fn: _pinned(at[j], fn))
+    else:
+        results = []
+        for j, argv in enumerate(argvs):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = _pinned(at[j], lambda: cli.main([a.replace("{url}", url) for a in argv]))
+            results.append((code, buf.getvalue(), ""))
+    for (label, _), (code, stdout, stderr) in zip(ctour.CLI_STEPS, results):
+        if code != 0:
+            raise AssertionError(f"clients: cli {label} exited {code}: {stderr[-2000:]}")
+        replies.append((f"cli:{label}", stdout))
+    secs["cli_s"] = time.perf_counter() - t0
+    out = {"replies": replies, "s": secs}
+    if card:
+        out["launches"] = read_launches()
+    return out
+
+
+def clients_own(work, device) -> dict:
+    """The in-process clients over stores of their own under ``work`` on
+    ``device``, at ``clients_now()``: ``McpMemoryServer`` over a store
+    seeded from ``tour_memories`` and the client tour's MCP session
+    (``run_mcp``: every tool); one stdio session of ``python -m
+    shodh_tpu_torch.clients.mcp_server`` (initialize, remember, recall, end
+    of input), its exit code and replies; the terminal dashboard's
+    ``EngineData`` over a store seeded alike and ``App`` driven by
+    ``TUI_KEYS`` (rows at 100 x 30); ``Memory(embedded=True)``'s add, search
+    and fsck. Replies are returned with ``work`` masked. On the CPU the
+    stdio session runs the module's ``main`` in this process over redirected
+    standard streams."""
+    from pathlib import Path
+
+    saved_uuid4 = uuid.uuid4
+    try:
+        return _clients_own(clients_now(), Path(work), device)
+    finally:
+        uuid.uuid4 = saved_uuid4
+
+
+def _clients_own(now, work, device) -> dict:
+    from datetime import timedelta
+
+    from shodh_tpu_torch.clients import client as sdk
+    from shodh_tpu_torch.clients import mcp_server
+    from shodh_tpu_torch.clients.mcp_server import McpMemoryServer
+    from shodh_tpu_torch.clients.tui import App, EngineData, render
+    from shodh_tpu_torch.utils.clock import pin_now
+    from tools import client_tour as ctour
+    from tools import server_tour as tour
+
+    def seed(part: int) -> None:
+        # a sequence of the part's own: the stdio session draws its ids in
+        # its process on the card and in this one on the CPU
+        uuid.uuid4 = SeededUuid4(CLIENT_SEED + part)
+
+    secs, replies = {}, []
+    t0 = time.perf_counter()
+    seed(1)
+    mcp = McpMemoryServer(work / "mcp", "agent", device=device)
+    try:
+        session = ctour.run_mcp(mcp, pin_now, now, tour.tour_memories(CLIENT_MEMORIES))
+    finally:
+        mcp.system.close()
+    replies += [(f"mcp:{label}", reply) for label, reply in session]
+    secs["mcp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    argv = ["--data-dir", str(work / "mcp_stdio")] + (["--cpu"] if str(device) == "cpu" else [])
+    lines = "".join(json.dumps(r) + "\n" for r in ctour.stdio_session(now))
+    if str(device) != "cpu":
+        res = subprocess.run([sys.executable, "-m", "shodh_tpu_torch.clients.mcp_server", *argv],
+                             input=lines, cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600,
+                             env={**os.environ, "SHODH_EVAL_NOW": now.isoformat()})
+        code, stdout, stderr = res.returncode, res.stdout, res.stderr
+    else:
+        buf, stdin = io.StringIO(), sys.stdin
+        try:
+            sys.stdin = io.StringIO(lines)
+            with contextlib.redirect_stdout(buf), env(SHODH_EVAL_NOW=now.isoformat()):
+                mcp_server.main(argv)
+        finally:
+            sys.stdin = stdin
+        code, stdout, stderr = 0, buf.getvalue(), ""
+    secs["mcp_stdio_s"] = time.perf_counter() - t0
+    replies.append(("mcp_stdio", [json.loads(line) for line in stdout.splitlines()]))
+    t0 = time.perf_counter()
+    seed(2)
+    data = EngineData(str(work / "tui"), "tui", device=device)
+    try:
+        pin_now(now)
+        try:
+            data.system.batch_remember(tour.tour_memories(CLIENT_MEMORIES))
+            app = App(data)
+        finally:
+            pin_now(None)
+        replies += [(f"tui:{keys}", [status, rows])
+                    for keys, status, rows in ctour.run_tui(app, render, pin_now, now)]
+    finally:
+        data.close()
+    secs["tui_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seed(3)
+    with sdk.Memory(embedded=True, data_dir=str(work / "embedded"), device=device) as m:
+        replies.append(("embedded:add", _pinned(now, lambda: m.add(
+            "Dana: the embedded engine keeps the kafka runbook", tags=["embedded"]))))
+        _pinned(now, lambda: m.batch_remember(tour.tour_memories(CLIENT_MEMORIES)))
+        replies.append(("embedded:search", _pinned(now + timedelta(minutes=1), lambda: m.search(
+            "kafka cluster runbook", limit=ENGINE_K))))
+        replies.append(("embedded:fsck", _pinned(now + timedelta(minutes=2), m.fsck)))
+    secs["embedded_s"] = time.perf_counter() - t0
+    return {"replies": [(label, tour.normalize(reply, work)) for label, reply in replies],
+            "s": secs, "mcp_stdio_exit": code, "mcp_stdio_err": stderr[-2000:],
+            "mcp_errors": ctour.mcp_errors(session)}
+
+
+def write_safetensors_checkpoint(dest, seed: int = SEED):
+    """A full-width MiniLM checkpoint as ``setup-models`` expects one:
+    ``config.json``, the seeded ``vocab.txt`` and ``model.safetensors`` (an
+    8-byte little-endian header length, a JSON header, then the raw
+    little-endian f32 tensors of ``init_params(seed)`` under BertModel's
+    names). Returns the directory."""
+    from pathlib import Path
+
+    from shodh_tpu_torch.models.minilm import CONFIG, _hf_key_map, init_params
+
+    dest = Path(dest)
+    dest.mkdir(parents=True, exist_ok=True)
+    params = init_params(seed)
+    header, blobs, offset = {}, [], 0
+    for hf_name, ours in _hf_key_map(CONFIG["layers"]).items():
+        parts = ours.split(".")
+        arr = params["layers"][int(parts[1])][parts[2]] if parts[0] == "layers" else params[ours]
+        arr = np.asarray(arr, np.float32)
+        if ours.endswith("_w") and arr.ndim == 2:
+            arr = arr.T  # BertModel's linears keep (out, in)
+        blob = np.ascontiguousarray(arr).astype("<f4").tobytes()
+        header[hf_name] = {"dtype": "F32", "shape": list(arr.shape),
+                           "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    (dest / "model.safetensors").write_bytes(len(head).to_bytes(8, "little") + head
+                                             + b"".join(blobs))
+    (dest / "config.json").write_text(json.dumps({
+        "vocab_size": CONFIG["vocab_size"], "hidden_size": CONFIG["hidden"],
+        "num_hidden_layers": CONFIG["layers"], "num_attention_heads": CONFIG["heads"],
+        "intermediate_size": CONFIG["ffn"], "max_position_embeddings": CONFIG["max_position"],
+        "layer_norm_eps": CONFIG["ln_eps"]}))
+    (dest / "vocab.txt").write_text("\n".join(minilm_vocab()) + "\n", encoding="utf-8")
+    return dest
+
+
+def clients_cli_checks(work, device="cuda") -> dict:
+    """The scaffolding subcommands as processes of ``python -m
+    shodh_tpu_torch.cli`` on ``device``, all at once: ``doctor`` names the
+    card (on the CPU it runs with ``--cpu``) and exits 0; ``version`` prints
+    the port's version; ``init`` twice over one directory gives the same key,
+    then ``already initialized``; under ``SHODH_OFFLINE=1`` ``setup-models
+    --skip-parity`` exits 0 over a written safetensors checkpoint (which the
+    port's loader reads back as ``init_params(SEED)``) and 1 with
+    ``offline:`` over an empty directory."""
+    from pathlib import Path
+
+    import torch
+
+    from shodh_tpu_torch import __version__
+    from shodh_tpu_torch.models.minilm import flatten_params, init_params, load_checkpoint
+
+    work = Path(work)
+    root = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items() if k != "SHODH_MINILM_DIR"}
+
+    def cli(*args, **extra):
+        res = subprocess.run([sys.executable, "-m", "shodh_tpu_torch.cli", *args], cwd=root,
+                             capture_output=True, text=True, timeout=600,
+                             env={**base_env, "HOME": str(work / "home"), **extra})
+        return res.returncode, res.stdout, res.stderr
+
+    def init_twice():
+        return [cli("init", "--data-dir", str(work / "init")) for _ in range(2)]
+
+    def setup_models():
+        ckpt = write_safetensors_checkpoint(work / "minilm")
+        read, want = flatten_params(load_checkpoint(ckpt)), flatten_params(init_params(SEED))
+        if set(read) != set(want) or any(not np.array_equal(read[k], want[k]) for k in want):
+            raise AssertionError("clients: the written safetensors checkpoint reads back otherwise")
+        return ckpt, cli("setup-models", "--target-dir", str(ckpt), "--skip-parity",
+                         SHODH_OFFLINE="1")
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(cli, "doctor", *(["--cpu"] if str(device) == "cpu" else [])),
+                pool.submit(cli, "version"), pool.submit(init_twice), pool.submit(setup_models),
+                pool.submit(cli, "setup-models", "--target-dir", str(work / "empty"),
+                            "--skip-parity", SHODH_OFFLINE="1")]
+        doctor, version, inits, (ckpt, models), offline = (j.result() for j in jobs)
+    out = {"s": time.perf_counter() - t0, "doctor": doctor[1].splitlines()}
+    name = torch.cuda.get_device_name(0) if str(device) != "cpu" else "none (no CUDA device)"
+    if doctor[0] != 0 or name not in doctor[1]:
+        raise AssertionError(f"clients: cli doctor exited {doctor[0]} without naming {name!r}: "
+                             f"{doctor[1]} {doctor[2][-2000:]}")
+    if version[:2] != (0, __version__ + "\n"):
+        raise AssertionError(f"clients: cli version: {version}")
+    keys = [o.split("api key: ")[1].split()[0] if rc == 0 else None for rc, o, _ in inits]
+    if keys[0] is None or keys[0] != keys[1] or "already initialized" not in inits[1][1]:
+        raise AssertionError(f"clients: cli init is not idempotent: {inits}")
+    out["init"] = "idempotent"
+    out["setup_models"] = {"exit": models[0], "stdout": models[1].strip()}
+    if models[0] != 0 or models[1].strip() != f"checkpoint: {ckpt}":
+        raise AssertionError(f"clients: setup-models over the written checkpoint: {models}")
+    out["setup_models_offline"] = {"exit": offline[0], "stderr": offline[2].strip()[:120]}
+    if offline[0] != 1 or not offline[2].startswith("offline:"):
+        raise AssertionError(f"clients: setup-models offline over an empty directory: {offline}")
+    return out
+
+
 def _ws_step(st: dict, port: int, headers: dict, client, rec: dict, card: bool,
              searches: list) -> tuple:
     """A WebSocket step of the server script: the monitor's session (the
@@ -3353,10 +3759,13 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
     readonly recalls at concurrency 1 and 4, a remember and a recall over the
     fleet mesh, and on the card the read replica (``ReplicaProcess``, started
     before the open, so that it follows the writer's whole session) held to
-    the served user; then the server stops as SIGINT would, and the twin
+    the served user; the clients step (``clients_served`` after the tour,
+    ``clients_own`` and on the card ``clients_cli_checks`` while the answers'
+    replica opens); then the server stops as SIGINT would, and the twin
     repairs a damaged copy of the tour's MIF user with ``cli fsck``. Returns
     the script, every reply with its status and host ms, the served index's
-    searches, and on the card K1's launches on the script and on the stream."""
+    searches, the clients step's replies and seconds, and on the card K1's
+    launches on the script, on the stream and on the clients step."""
     from datetime import datetime, timedelta
     from pathlib import Path
 
@@ -3472,6 +3881,12 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
                                         ws=ws)
             rec["tour_s"] = time.perf_counter() - t0
             tclient.close()
+            # the clients of the running server: the SDK, the client subcommands
+            t0 = time.perf_counter()
+            clients = clients_served(server.port, sock, device, card)
+            clients["replies"] = [(label, tour.normalize(reply, data_dir))
+                                  for label, reply in clients["replies"]]
+            clients["s"]["served_s"] = time.perf_counter() - t0
             if card:
                 rec["concurrency"] = _concurrency(server.port, opened, script, n_concurrent)
             replies += _fleet_check(app, client, opened, compare_now)
@@ -3486,6 +3901,19 @@ def drive_server(data_dir, device, work, seed: int = SERVER_SEED, card=False,
                 replica = ReplicaProcess(Path(data_dir) / "users" / SERVER_USER, device,
                                          Path(work) / "replica2", compare_now)
                 replica.start()
+            # the in-process clients over stores of their own and, on the card
+            # only, the scaffolding subcommands, while the answers' replica opens
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                checks = (pool.submit(clients_cli_checks, Path(work) / "cli_checks", device)
+                          if card else None)
+                own = clients_own(Path(work) / "clients", device)
+                if checks is not None:
+                    clients["cli_checks"] = checks.result()
+            clients["replies"] += own.pop("replies")
+            clients["s"].update(own.pop("s"), own_s=time.perf_counter() - t0)
+            rec["clients"] = {**clients, **own}
+            if card:
                 texts = [st["body"]["query"] for st in script if st["label"] == "recall"]
                 t0 = time.perf_counter()
                 rec["replica"]["answers"] = replica.answers(system, texts)
@@ -3604,8 +4032,8 @@ class ServerTwin:
     """The server phase's CPU twin: ``start()`` copies the served user's
     store (before anything writes to it) and runs ``drive_server`` on the
     CPU over the copy in a process of its own, which builds the same script
-    from its copy; ``result()`` waits for it. ``main`` starts it beside phase
-    8's own twin, so that it is done before the card's timed side begins."""
+    from its copy; ``result()`` waits for it. ``phase_server`` runs it beside
+    the card's side."""
 
     def __init__(self, data_dir, work, sizes: dict | None = None):
         from pathlib import Path
@@ -3634,16 +4062,21 @@ class ServerTwin:
         finally:
             self._pool.shutdown()
 
+    def kill(self) -> None:
+        """End the twin at once (the card's side failed)."""
+        for proc in list(self._pool._processes.values()):
+            proc.kill()
+        self._pool.shutdown(cancel_futures=True)
+
 
 def phase_server(data_dir, work, device="cuda", expect_k1=True,
-                 n_concurrent: int = SERVER_CONCURRENT, sizes: dict | None = None,
-                 twin: ServerTwin | None = None) -> dict:
+                 n_concurrent: int = SERVER_CONCURRENT, sizes: dict | None = None) -> dict:
     """The port's server on ``device`` over ``data_dir`` (phase 8's quiet store
     as user ``agent``): ``drive_server`` on the card's side, and the same
     script on a CPU twin (``ServerTwin``) in a process of its own over a copy
-    made before anything wrote (``twin`` if given, started earlier, else one
-    started here), awaited before the card's side begins so that nothing runs
-    beside its clocks. Every reply is held to the twin's (status; JSON with
+    made before anything wrote, beside the card's side (``main`` runs the
+    phase beside phase 8's twin too: the card's host clocks here are not
+    alone). Every reply is held to the twin's (status; JSON with
     ids in order, floats rtol 1e-5, atol 1e-7; ``tour.EXCLUDED_KEYS`` and
     the data dir's path masked), the IPC replies to the HTTP ones, the
     stream's stored memories to the twin's; then three processes at once
@@ -3658,23 +4091,26 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
     t_phase = time.perf_counter()
     data_dir, work = Path(data_dir), Path(work)
     rec = {"phase": "server"}
-    if twin is None:
-        twin = ServerTwin(data_dir, work, sizes)
-        twin.start()
-    t0 = time.perf_counter()
-    twin_rec = twin.result()  # nothing runs beside the card's timed side
-    rec["twin_wait_s"], rec["copy_s"] = time.perf_counter() - t0, twin.copy_s
+    twin = ServerTwin(data_dir, work, sizes)
+    twin.start()
     card_work = work / "card_work"
     card_work.mkdir(parents=True)
-    card = drive_server(data_dir, device, card_work, card=True, n_concurrent=n_concurrent,
-                        sizes=sizes)
-    # three store opens at once beside no writer: the reopen by cli serve,
-    # fsck of the served store, and the repair of a damaged copy
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(_cli_serve_check, data_dir, device, card["memories_final"]),
-                pool.submit(_fsck_cli, data_dir, SERVER_USER, device),
-                pool.submit(fsck_repair, data_dir, card_work, device)]
-        cli, fsck, repair = (j.result() for j in jobs)
+    try:
+        card = drive_server(data_dir, device, card_work, card=True, n_concurrent=n_concurrent,
+                            sizes=sizes)
+        # three store opens at once beside no writer: the reopen by cli serve,
+        # fsck of the served store, and the repair of a damaged copy
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            jobs = [pool.submit(_cli_serve_check, data_dir, device, card["memories_final"]),
+                    pool.submit(_fsck_cli, data_dir, SERVER_USER, device),
+                    pool.submit(fsck_repair, data_dir, card_work, device)]
+            cli, fsck, repair = (j.result() for j in jobs)
+    except BaseException:
+        twin.kill()  # else the twin runs on over a store about to be removed
+        raise
+    t0 = time.perf_counter()
+    twin_rec = twin.result()
+    rec["twin_wait_s"], rec["copy_s"] = time.perf_counter() - t0, twin.copy_s
     if fsck["exit"] != 0 or not fsck["report"]["ok"]:
         raise AssertionError(f"server: fsck of the served store: exit {fsck['exit']}: "
                              f"{fsck['report']}")
@@ -3739,6 +4175,32 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
                 v["impressions"] for v in r["body"]["experiment"]["stats"].values()) != 1):
             raise AssertionError(f"server: the scoring A/B: {tour.short(r['body'])}")
 
+    # the clients step: every reply against the twin's, no tool error of the
+    # MCP session on the card that the twin's reply does not repeat, the
+    # stdio session's exit, K1 on the remembers into the served user
+    clients, twin_clients = card["clients"], twin["clients"]
+    if [lb for lb, _ in clients["replies"]] != [lb for lb, _ in twin_clients["replies"]]:
+        raise AssertionError("clients: the twin answered other calls")
+    clients_checked = Counter()
+    for (label, got), (_, want) in zip(clients["replies"], twin_clients["replies"]):
+        diffs = tour.differences(got, want)
+        if diffs:
+            raise AssertionError(f"clients {label}: differs from the twin: {diffs[:4]}")
+        clients_checked[label.split(":")[0]] += 1
+    unmatched = [lb for lb in clients["mcp_errors"] if lb not in twin_clients["mcp_errors"]]
+    if unmatched:
+        raise AssertionError(f"clients: MCP tool errors on the card only: {unmatched}")
+    stdio = dict(clients["replies"])["mcp_stdio"]
+    if clients["mcp_stdio_exit"] != 0 or len(stdio) != 3:
+        raise AssertionError(f"clients: the MCP stdio session exited "
+                             f"{clients['mcp_stdio_exit']} after {len(stdio)} replies: "
+                             f"{clients['mcp_stdio_err']}")
+    clients_k1 = clients.get("launches", {}).get("groupmax", 0)
+    if expect_k1 and (clients_k1 < 1 or clients["launches"]["v3_pass1"]
+                      or clients["launches"]["v4_pass1"]):
+        raise AssertionError(f"clients: K1 launched {clients_k1} times on the client path "
+                             f"({clients['launches']})")
+
     # the served path's K1 launches: one per ingest chunk of 8, one per search
     # of the served (flushed) index
     remembered = sum(len(st["body"]["memories"]) if st["label"] == "batch" else 1
@@ -3772,6 +4234,11 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
     rec["fleet"] = {r["label"]: r["ms"] for r in card["replies"]
                     if r["label"].startswith("fleet_")}
     rec["replica"] = card.get("replica")
+    rec["clients"] = {**clients["s"], "replies_checked": dict(clients_checked),
+                      "mcp_errors": clients["mcp_errors"], "k1_launches": clients_k1,
+                      "launches": clients.get("launches"),
+                      "mcp_stdio_exit": clients["mcp_stdio_exit"],
+                      "twin_s": twin_clients["s"], "cli_checks": clients.get("cli_checks")}
     rec["fsck"] = {"exit": fsck["exit"], "s": fsck["s"], "ok": fsck["report"]["ok"],
                    "memories": fsck["report"].get("memories")}
     rec["fsck_repair"] = {"exit": repair["exit"], "s": repair["s"],
@@ -3909,15 +4376,21 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as ev:
             emit({**phase_eval(ev), "card": card})
         with tempfile.TemporaryDirectory() as work, tempfile.TemporaryDirectory() as swork:
-            # the server phase's CPU twin replays its script over a copy of
-            # phase 8's final store beside phase 8's own twin, both off the card's clocks
-            server_twin = ServerTwin(data_dir, swork)
+            served = {}
+
+            def serve():
+                # the server phase over phase 8's final store, beside the
+                # end of phase 8's twin and the comparison with it
+                torch.cuda.empty_cache()
+                served["rec"] = phase_server(data_dir, swork)
+
             rec_system = phase_system(tmp, work, n_calls=SYSTEM_RECALLS_CARD,
-                                      n_staged=STAGED_RECALLS_CARD, after_card=server_twin.start)
+                                      n_staged=STAGED_RECALLS_CARD, beside_twin=serve)
             emit(rec_system)
-            torch.cuda.empty_cache()
-            rec_server = phase_server(data_dir, swork, twin=server_twin)
+            rec_server = served["rec"]
+        rec_clients = rec_server.pop("clients")
         emit({**rec_server, "card": card})
+        emit({"phase": "clients", **rec_clients, "card": card})
     torch.cuda.empty_cache()
     emit({"phase": "total", "script_s": time.perf_counter() - _START})
 
@@ -3939,6 +4412,7 @@ def main() -> int:
          "system_launches": rec_system["launches"]["groupmax"],
          "server_launches": rec_server["k1_launches"],
          "stream_launches": rec_server["stream"]["k1_launches"],
+         "clients_launches": rec_clients["k1_launches"],
          "staged_launches": rec_system["staged_launches"]["groupmax"],
          "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],
          "b8_bound_ms": rec_system["k1_b8"]["bound_ms"],

@@ -19,3 +19,19 @@ def resolve_device(device=None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def add_device_args(parser, what: str) -> None:
+    """``--device`` and ``--cpu`` on an entry point's argument parser."""
+    parser.add_argument("--device", default=None,
+                        help=f"torch device of {what} (default: the CUDA card; 'cpu')")
+    parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+
+
+def device_arg(parser, args):
+    """The device that ``add_device_args``' options name: ``None`` (the card)
+    unless one is given. ``--cpu`` beside another ``--device`` is a usage
+    error."""
+    if args.cpu and args.device not in (None, "cpu"):
+        parser.error("--cpu contradicts --device " + args.device)
+    return "cpu" if args.cpu else args.device

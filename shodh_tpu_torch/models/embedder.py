@@ -32,7 +32,9 @@ _BATCH_BUCKETS = (1, 8, 32, 128, 256)
 _LEN_BUCKETS = (16, 32, 64, 128, 256)
 
 
-def _default_minilm_dir() -> Path:
+def default_minilm_dir() -> Path:
+    """Where a MiniLM checkpoint is looked for (and ``setup-models`` puts one)
+    when ``SHODH_MINILM_DIR`` names none: the JAX package's directory."""
     return Path.home() / ".cache" / "shodh-tpu" / "minilm"
 
 
@@ -258,7 +260,7 @@ class CircuitBreakerEmbedder:
 def default_embedder(cached: bool = True, device=None) -> Embedder:
     """MiniLM on ``device`` (the card unless the caller names the CPU) if a
     checkpoint is configured or present, else the offline hash embedder."""
-    default_dir = _default_minilm_dir()
+    default_dir = default_minilm_dir()
     ckpt = os.environ.get(ENV_MINILM_DIR) or (str(default_dir) if default_dir.exists() else None)
     if ckpt and Path(ckpt).exists():
         inner: Embedder = MiniLMEmbedder(ckpt, device=device)

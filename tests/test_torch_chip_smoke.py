@@ -76,3 +76,40 @@ def test_seeded_uuid4_leaves_the_mesh_its_own_ids():
         assert seeded.rng.bit_generator.state == before
     finally:
         uuid.uuid4 = real
+
+
+def test_gated_processes_serve_requests_in_order():
+    """The clients step's processes start together and reach the server one
+    by one in their order, whatever order they connect in (the later ones
+    here connect first), each exchange inside its ``around``."""
+    import http.server
+    import sys
+    import threading
+
+    seen = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            seen.append(self.path)
+            body = self.path.encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    code = ("import sys, time, urllib.request; time.sleep(float(sys.argv[2])); "
+            "print(urllib.request.urlopen(sys.argv[1] + '/p' + sys.argv[3]).read().decode())")
+    around = []
+    try:
+        out = cs.gated_processes(
+            [[sys.executable, "-c", code, "{url}", str(0.2 * (3 - j)), str(j)] for j in range(4)],
+            server.server_address[1], lambda j, fn: (around.append(j), fn()))
+    finally:
+        server.shutdown()
+    assert seen == ["/p0", "/p1", "/p2", "/p3"] and around == [0, 1, 2, 3]
+    assert out == [(0, f"/p{j}\n", "") for j in range(4)]

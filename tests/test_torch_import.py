@@ -124,7 +124,18 @@ PORT_MODULES = [
     "shodh_tpu_torch.server.replica",
     "shodh_tpu_torch.server.fleet",
     "shodh_tpu_torch.server.fleet_net",
+    "shodh_tpu_torch.clients.client",
+    "shodh_tpu_torch.clients.integrations",
+    "shodh_tpu_torch.clients.mcp_server",
+    "shodh_tpu_torch.clients.tui.data",
+    "shodh_tpu_torch.clients.tui.state",
+    "shodh_tpu_torch.clients.tui.render",
+    "shodh_tpu_torch.clients.tui.shell",
+    "shodh_tpu_torch.clients.tui.__main__",
+    "shodh_tpu_torch.models.downloader",
+    "shodh_tpu_torch.models.parity",
     "tools.server_tour",
+    "tools.client_tour",
     "chip_smoke",
 ]
 _ABSENT = ("jax", "shodh_tpu", "msgpack", "aiohttp")  # never imported by a port process
@@ -139,7 +150,8 @@ def _port_sources():
     files = sorted((ROOT / "shodh_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_search.py",
         ROOT / "tools" / "torch_legs_ab.py", ROOT / "tools" / "torch_ingest_ab.py",
-        ROOT / "tools" / "server_tour.py"]
+        ROOT / "tools" / "server_tour.py", ROOT / "tools" / "client_tour.py",
+        ROOT / "tools" / "torch_server_rehearsal.py"]
     assert len(files) >= 10
     return files
 
@@ -153,7 +165,8 @@ def test_every_port_module_is_listed():
     assert {"shodh_tpu_torch.storage", "shodh_tpu_torch.engine", "shodh_tpu_torch.nlp",
             "shodh_tpu_torch.models", "shodh_tpu_torch.utils", "shodh_tpu_torch.graph",
             "shodh_tpu_torch.retrieval", "shodh_tpu_torch.harness",
-            "shodh_tpu_torch.server"} <= subpackages
+            "shodh_tpu_torch.server", "shodh_tpu_torch.clients",
+            "shodh_tpu_torch.clients.tui"} <= subpackages
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -305,6 +318,36 @@ def test_entry_points_need_a_gpu_unless_given_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeviceVectorIndex(8)
     assert DeviceVectorIndex(8, device="cpu").device.type == "cpu"
+
+
+def _client_entry_points(root):
+    """Each entry point of the clients and of the model setup that opens an
+    engine or an encoder, by name: a call with ``device`` as given."""
+    from shodh_tpu_torch.clients.client import Memory
+    from shodh_tpu_torch.clients.mcp_server import McpMemoryServer
+    from shodh_tpu_torch.clients.tui import EngineData
+    from shodh_tpu_torch.models.parity import minilm_geometry_parity
+
+    return {
+        "Memory(embedded=True)": lambda **kw: Memory(embedded=True, data_dir=str(root / "m"),
+                                                     **kw).close(),
+        "McpMemoryServer": lambda **kw: McpMemoryServer(root / "mcp", **kw).system.close(),
+        "EngineData": lambda **kw: EngineData(str(root / "tui"), **kw).close(),
+        "minilm_geometry_parity": lambda **kw: minilm_geometry_parity(root / "none", **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["Memory(embedded=True)", "McpMemoryServer", "EngineData",
+                                  "minilm_geometry_parity"])
+def test_client_entry_points_need_a_gpu_unless_given_cpu(tmp_path, monkeypatch, name):
+    """(The parity's CPU run is ``tests/test_torch_model_setup.py``'s.)"""
+    monkeypatch.setenv("HOME", str(tmp_path))  # no MiniLM checkpoint: the hash embedder
+    call = _client_entry_points(tmp_path)[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    if name != "minilm_geometry_parity":
+        call(device="cpu")
 
 
 def test_chip_smoke_refuses_without_gpu():

@@ -49,6 +49,7 @@ import shodh_tpu_torch.server.integrations_sync as port_isync
 import shodh_tpu_torch.utils.clock as port_clock
 from shodh_tpu.server.state import MultiUserMemoryManager as RefManager
 from shodh_tpu_torch.server import web
+from tools import client_tour as ctour
 from tools import server_tour as tour
 from tools.server_tour import comparable, differences, normalize, short
 from shodh_tpu_torch.server.state import MultiUserMemoryManager as PortManager
@@ -545,26 +546,6 @@ def test_cli_serve_without_a_device_needs_the_card(tmp_path, monkeypatch):
 # chip_smoke.py's server phase, rehearsed on the CPU at a small size
 # ---------------------------------------------------------------------------
 
-_PHASE_SCRIPT = """
-import json, os, sys
-sys.path.insert(0, {root!r})
-import chip_smoke as cs
-
-if __name__ == "__main__":
-    data_dir, work = sys.argv[1], sys.argv[2]
-    store = os.path.join(data_dir, "users", cs.SERVER_USER)
-    os.makedirs(store)
-    rec, holder, engines = cs.phase_engine(store, device="cpu", n=300, n_more=20, n_in_place=4,
-                                           n_timed=0)
-    cs.make_store_quiet(holder, store)
-    del holder, engines
-    out = cs.phase_server(data_dir, work, device="cpu", expect_k1=False, n_concurrent=3,
-                          sizes=dict(n_recalls=3, n_batch=64, n_single=3, n_proactive=2,
-                                     n_stream=24))
-    print(json.dumps(out))
-"""
-
-
 def test_chip_smoke_runs_every_staged_shape_on_the_card():
     """Phase 8's cut depth and the server phase's staged recalls together
     reach every staged shape, the scoring A/B through the server's routes."""
@@ -576,9 +557,10 @@ def test_chip_smoke_runs_every_staged_shape_on_the_card():
 
 
 def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
-    """The chip script's ``server`` phase at a small size on the CPU: the
-    served store opens quietly, the script, the route tour, the IPC pair, a
-    stream session, the monitor's feed and the fleet mesh run, every reply
+    """The chip script's ``server`` phase at a small size on the CPU, as
+    ``tools/torch_server_rehearsal.py --cpu`` runs it: the served store
+    opens quietly, the script, the route tour, the IPC pair, a stream
+    session, the monitor's feed and the fleet mesh run, every reply
     and the stream's stored memories equal the twin's (in a process of its
     own, under the script's string hash seed); the read replica (``cli
     replica --cpu``) follows the writer to its index length and exits 0 on
@@ -588,22 +570,20 @@ def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
     ``cli serve`` reopens the stopped store quietly and exits 0 on SIGINT."""
     import chip_smoke as cs
 
-    script = tmp_path / "phase.py"
-    script.write_text(_PHASE_SCRIPT.format(root=str(ROOT)))
-    (tmp_path / "work").mkdir()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONHASHSEED"] = "0"
     # the phase starts a twin, two replicas and three cli processes: few
     # threads each, beside the other test workers
     env["OMP_NUM_THREADS"] = "2"
-    res = subprocess.run([sys.executable, str(script), str(tmp_path / "data"),
-                          str(tmp_path / "work")], cwd=ROOT, env=env, capture_output=True,
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_server_rehearsal.py"),
+                          "--cpu", "--memories", "300"], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     rec = json.loads(res.stdout.strip().splitlines()[-1])
     assert rec["phase"] == "server" and rec["memories_before"] == 324
     assert 324 < rec["memories_after"] <= 324 + 64 + 3 + 24 + 1
-    assert rec["memories_final"] == rec["memories_after"] + 2  # the fleet's and the replica's
+    # the fleet's, the replica's and the client step's ``cli remember``
+    assert rec["memories_final"] == rec["memories_after"] + 3
     assert rec["tour_requests"] == len(tour.steps("."))
     assert rec["tour_status"] == {"200": 271, "404": 9, "400": 12, "422": 1, "401": 1, "101": 2}
     assert rec["twin_checked"] == {"health_index": 1, "recall": 3, "staged": 8, "ab_create": 1,
@@ -627,3 +607,11 @@ def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
     assert rec["concurrency"]["n"] == 3 and rec["concurrency"]["c3_rps"] > 0
     assert rec["cli_serve"]["exit"] == 0 and rec["cli_serve"]["health"] == 200
     assert rec["index_searches"] > 8 and rec["k1_launches"] == 0
+    clients = rec["clients"]  # every call of the clients step, equal to the twin's
+    checked = dict(clients["replies_checked"])
+    assert checked.pop("mcp") > len(ctour.MCP_TOOLS)
+    assert checked == {"sdk": 17, "sdk_ipc": 1, "sdk_http": 1, "cli": 5, "mcp_stdio": 1,
+                       "tui": len(ctour.TUI_KEYS) + 1, "embedded": 3}
+    assert clients["mcp_errors"] == ["tool_error"] and clients["mcp_stdio_exit"] == 0
+    checks = clients["cli_checks"]  # on the card's side: doctor, version, init, setup-models
+    assert checks["setup_models"]["exit"] == 0 and checks["setup_models_offline"]["exit"] == 1

@@ -10,8 +10,10 @@ batched search on ``/api/batch_remember`` and ``/api/remember``, the staged
 recall's vector leg and ``/api/proactive_context`` all launch K1. Every
 reply equals a CPU server's over the same rows and requests. So do the
 replies and stored memories of an ``/api/stream`` session over the same
-index (K1 in its flushes' searches), and the answers of a ``FollowerReader``
-on the card against one on the CPU after a refresh and a resync.
+index (K1 in its flushes' searches), the answers of a ``FollowerReader``
+on the card against one on the CPU after a refresh and a resync, and the
+replies of an MCP server's ``remember`` and ``recall`` and an embedded
+``Memory``'s searches on the card against the same on the CPU.
 """
 
 from __future__ import annotations
@@ -196,3 +198,52 @@ def test_follower_refresh_and_recall_on_the_card_equal_the_cpu(tmp_path):
         writer.close()
     finally:
         pin_now(None)
+
+
+def _clients(tmp_path, device, monkeypatch) -> list:
+    """An MCP server and an embedded ``Memory`` on ``device``, each over a
+    store of ``chip_smoke.py``'s seeded turns: the MCP ``remember`` and
+    ``recall`` replies and the embedded ``search``'s (session ids drawn from
+    one seeded sequence per side)."""
+    import chip_smoke as cs
+    from shodh_tpu_torch.clients.client import Memory
+    from shodh_tpu_torch.clients.mcp_server import McpMemoryServer
+
+    rng = np.random.default_rng(5)
+    monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(bytes=rng.bytes(16), version=4))
+
+    mems = [m.experience.to_dict() for m in cs.make_memories(48, seed=11)]
+    texts = cs.leg_queries(4, 13)
+    out = []
+    pin_now(NOW)
+    try:
+        mcp = McpMemoryServer(tmp_path / f"mcp-{device}", "card", device=device)
+        assert mcp.system.index.device.type == device
+        mcp.system.batch_remember(mems)
+        out.append(mcp.handle({"jsonrpc": "2.0", "id": 1, "method": "tools/call", "params": {
+            "name": "remember", "arguments": {"content": "the card remembers the rack move",
+                                              "tags": ["card"]}}}))
+        for j, text in enumerate(texts):
+            out.append(mcp.handle({"jsonrpc": "2.0", "id": 2 + j, "method": "tools/call",
+                                   "params": {"name": "recall",
+                                              "arguments": {"query": text, "limit": 5}}}))
+        mcp.system.close()
+        with Memory(embedded=True, data_dir=str(tmp_path / f"emb-{device}"),
+                    device=device) as m:
+            m.batch_remember(mems)
+            out += [m.search(text, limit=5) for text in texts]
+    finally:
+        pin_now(None)
+    return out
+
+
+@pytest.mark.cuda
+def test_mcp_and_embedded_sdk_on_the_card_equal_the_cpu(tmp_path, monkeypatch):
+    _need_cuda()
+    card = _clients(tmp_path, "cuda", monkeypatch)
+    cpu = _clients(tmp_path, "cpu", monkeypatch)
+    assert len(card) == len(cpu) == 9
+    for got, want in zip(card, cpu):
+        assert not tour.differences(got, want), tour.differences(got, want)
+    assert not any(r.get("result", {}).get("isError") for r in card[:5])
+    assert all(card[5:])  # every embedded search found memories
