@@ -62,7 +62,12 @@ Phases, each printing one JSON line:
    B=256 and B=8 through K1, held to brute force; runs a ``MemorySystem``'s
    GLiNER ``NeuralNer`` over 256 texts against a CPU one; and runs ``cli
    eval --suite smoke`` with the checkpoint, its dump held to the JAX
-   package's ``tests/torch_eval_dumps/smoke-minilm.json`` within 1e-3;
+   package's ``tests/torch_eval_dumps/smoke-minilm.json`` within 1e-3; and
+   links a few surfaces in a ``KnowledgeBase`` (exact aliases, one blocked
+   by type, and cosine links inside a type block) and types a few relations
+   with a ``RelationTyper``, both over the card's embedder, held to the same
+   calls over a CPU ``MiniLMEmbedder`` with the same weights (the same
+   entities and labels, scores rtol 1e-5);
 6. ``engine``: the engine's device funnel (``DeviceRecallEngine``) over a
    store of 65,536 seeded conversation turns written through the port's own
    storage, embedded by its ``HashEmbedder`` and ingested into BM25 and the
@@ -173,6 +178,24 @@ Phases, each printing one JSON line:
     ``init`` twice and ``setup-models --skip-parity`` (exit 0 over a
     safetensors checkpoint the script writes from ``init_params``, 1 offline
     over an empty directory), each a process;
+10c. ``seat``: the conversation harness (``shodh_tpu_torch/seat``) over two
+    copies of the store the server phase starts from (67,623 memories), one
+    driven on the card in a process of its own from the phase's start,
+    beside the server's card side, the other on the CPU in the server twin's
+    process after its own drive; ``make_seat_app`` over ``SeatState``
+    on the card, served in process on 127.0.0.1:0 with a bearer token and
+    the scripted provider, each request at a pinned clock: ``/healthz``,
+    ``/v1/providers``, ``/v1/models``, a 401 without the bearer, a
+    conversation of 7 turns (recalls through the device funnel, a cited
+    reply, a write, a lesson, a negative follow-up, an unknown tool, the
+    harness injection; K1 in proactive context, the recalls and the write's
+    interference search), a model swap, the ledger, a revert of a write and
+    of a reinforcement, a title and a delete; every reply and SSE frame and
+    every ledger line equal to the twin's, no tool failure on the card alone,
+    both settlement legs and the injection armed; the open's seconds, ms per
+    turn with the proactive, recall and remember spans, each recall's stage
+    clock, K1's launches, the step's start and its seconds on the phase's
+    path;
 11. the ``kernels`` line: launches on the main path, errors and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any mismatch raises and
@@ -2689,6 +2712,77 @@ def _minilm_timings(embedders: dict, device, seed: int) -> dict:
     return out
 
 
+# the knowledge base's entities (id, name, type, aliases) and links (surface,
+# label, context, threshold): exact aliases with and without a compatible
+# type, cosine links inside a type block; the relation typer's sentences
+KB_ENTITIES = (("Q1", "Apple", "company", ("apple inc",)),
+               ("Q2", "Apple", "other", ("apple fruit",)),
+               ("Q3", "Kafka cluster migration", "software", ()),
+               ("Q4", "Pottery studio in Lisbon", "other", ()),
+               ("Q5", "Berlin", "city", ("berlin city",)),
+               ("Q6", "Acme Corp", "company", ("acme",)),
+               ("Q7", "Melanie", "person", ()), ("Q8", "Tokyo office", "location", ()))
+KB_LINKS = (("Apple", "organization", "", 0.4), ("apple fruit", "other", "", 0.4),
+            ("acme", "person", "", -1.0), ("kafka migration outage", "technology", "", -1.0),
+            ("the pottery class", "other", "clay mugs", -1.0), ("berlin", "location", "", 0.4),
+            ("the city of berlin", "location", "germany", -1.0), ("Mel", "person", "", -1.0),
+            ("zzz", "other", "", 1.01))
+RELATION_SENTENCES = (("Melanie works at Acme", "Melanie", "Acme"),
+                      ("The migration caused the outage", "migration", "outage"),
+                      ("Dana is based in Tokyo", "Dana", "Tokyo"),
+                      ("Ravi mentors Dana on the kafka cluster", "Ravi", "Dana"),
+                      ("the cache relies on redis", "cache", "redis"))
+LIBRARY_RTOL = 1e-5
+
+
+def library_calls(embedder) -> dict:
+    """``KnowledgeBase.link`` and ``RelationTyper.type_relation`` over
+    ``embedder``: the linked ids, the cosine scores of every link's query
+    against the entities, the typed relations, and the host ms per call."""
+    from shodh_tpu_torch.nlp.kb import KBEntity, KnowledgeBase
+    from shodh_tpu_torch.nlp.relation_typer import RelationTyper
+
+    kb = KnowledgeBase(embedder)
+    for qid, name, typ, aliases in KB_ENTITIES:
+        kb.add(KBEntity(id=qid, name=name, entity_type=typ, aliases=list(aliases)))
+    t0 = time.perf_counter()
+    hits = [kb.link(surface, label=label, context=context, threshold=threshold)
+            for surface, label, context, threshold in KB_LINKS]
+    link_ms = (time.perf_counter() - t0) / len(KB_LINKS) * 1e3
+    scores = np.stack([kb._matrix @ embedder.encode(f"{surface} {context}".strip())
+                       for surface, _, context, _ in KB_LINKS])
+    typer = RelationTyper(embedder, threshold=-1.0)
+    t0 = time.perf_counter()
+    typed = [typer.type_relation(*s) for s in RELATION_SENTENCES]
+    type_ms = (time.perf_counter() - t0) / len(RELATION_SENTENCES) * 1e3
+    return {"links": [None if h is None else h.id for h in hits], "scores": scores,
+            "relations": typed, "link_ms": link_ms, "type_ms": type_ms}
+
+
+def library_on(card_embedder, cpu_embedder) -> dict:
+    """``library_calls`` over the card's embedder and over the CPU's with the
+    same weights: the same entities and labels, scores within
+    ``LIBRARY_RTOL``. The two exact aliases (one blocked by type) must link,
+    every cosine link under a threshold of -1 must find an entity, and the
+    one over 1 none."""
+    got, want = library_calls(card_embedder), library_calls(cpu_embedder)
+    links = got["links"]
+    if links != want["links"] or links[:2] != ["Q1", "Q2"] or None in links[2:-1] or links[-1]:
+        raise AssertionError(f"library: the card linked {links}, the CPU {want['links']}")
+    labels = [r[0] for r in got["relations"]]
+    if labels != [r[0] for r in want["relations"]]:
+        raise AssertionError(f"library: the card typed {got['relations']}, the CPU "
+                             f"{want['relations']}")
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=LIBRARY_RTOL, atol=1e-7,
+                               err_msg="library: the knowledge base's cosine scores")
+    np.testing.assert_allclose([r[1] for r in got["relations"]],
+                               [r[1] for r in want["relations"]], rtol=LIBRARY_RTOL,
+                               err_msg="library: the relation typer's scores")
+    return {"links": links, "relations": labels, "link_ms": got["link_ms"],
+            "type_ms": got["type_ms"],
+            "score_max_abs": float(np.abs(got["scores"] - want["scores"]).max())}
+
+
 def phase_minilm(work, device="cuda", n=ENGINE_MEMORIES, n_more=MINILM_MORE,
                  n_checked=MINILM_CHECKED, n_queries=MINILM_QUERIES, n_gliner=GLINER_TEXTS,
                  seed=SEED, expect_k1=True, timings=True) -> dict:
@@ -2701,7 +2795,9 @@ def phase_minilm(work, device="cuda", n=ENGINE_MEMORIES, n_more=MINILM_MORE,
     the GLiNER typer of a ``MemorySystem``'s ``NeuralNer`` over ``n_gliner``
     texts, held to a CPU one; (f) ``cli eval --suite smoke`` with the MiniLM
     checkpoint on ``device``, its dump held to the JAX package's committed
-    one within ``EVAL_MINILM_TOL``. Any mismatch raises."""
+    one within ``EVAL_MINILM_TOL``; (g) ``library_on``: the knowledge base's
+    links and the relation typer's labels over the card's embedder, held to
+    the CPU's. Any mismatch raises."""
     import copy
     from pathlib import Path
 
@@ -2743,6 +2839,10 @@ def phase_minilm(work, device="cuda", n=ENGINE_MEMORIES, n_more=MINILM_MORE,
         rec["vs_cpu_max_abs"][name] = err
         if not err <= MINILM_TOL[e.compute_dtype]:
             raise AssertionError(f"minilm {name}: card vs CPU max abs {err}")
+
+    # (g) the knowledge base and the relation typer over MiniLM on the card,
+    # held to the same calls over the CPU embedder
+    rec["library"] = library_on(emb["f32_int8"], cpu["f32_int8"])
 
     # (d) MiniLM over an f32 index
     texts += memory_texts(n_more, seed + 3 + n, first=n, span_s=86400)
@@ -4042,12 +4142,388 @@ def _cli_serve_check(data_dir, device, expect_memories: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10's seat step: the conversation harness (``shodh_tpu_torch/seat``)
+# over a copy of the served user's store
+# ---------------------------------------------------------------------------
+
+SEAT_TOKEN = "chip-smoke-seat"  # the app's bearer token; one request goes without it
+SEAT_SEED = 20011  # the conversation and ledger ids' seeded sequence
+# (user text, the provider's scripted replies): recalls through the device
+# funnel, a cited reply (``{cite}``: turn 0's top memory), a write, a lesson,
+# a negative follow-up, an unknown tool (a tool failure in both packages), a
+# turn that matches the lessons (the harness injection), a thank-you that
+# settles it, and one turn after the model swap
+SEAT_TURNS = (
+    ("what happened with the kafka cluster migration and the outage?",
+     [{"tool": "recall_memory", "args": {"query": "kafka cluster migration outage", "limit": 5}},
+      {"text": "The kafka cluster migration came up in the incident review."}]),
+    ("which memory says so?",
+     [{"tool": "recall_memory", "args": {"query": "kafka cluster migration outage", "limit": 5}},
+      {"text": "This one: [mem:{cite}] {cite_text}"}]),
+    ("remember that the kafka cluster migration moves to the next sprint review",
+     [{"tool": "recall_memory", "args": {"query": "sprint review meeting"}},
+      {"tool": "remember_memory",
+       "args": {"content": "the kafka cluster migration moves to the next sprint review",
+                "tags": ["ops", "seat"]}},
+      {"tool": "record_seat_learning",
+       "args": {"lesson": "for kafka cluster migration questions recall with the words "
+                          "migration sprint review"}},
+      {"text": "Stored, and noted how to search for it."}]),
+    ("no, that is wrong and irrelevant; use the weather tool instead",
+     [{"tool": "fetch_weather", "args": {"city": "Lisbon"}},
+      {"text": "That tool does not exist here."}]),
+    ("for kafka cluster migration questions which words should the recall use?",
+     [{"tool": "recall_memory", "args": {"query": "kafka cluster migration sprint review"}},
+      {"text": "Recall with migration sprint review: the kafka cluster migration moves to "
+               "the next sprint review"}]),
+    ("thanks, that helps", [{"text": "Glad it helped."}]),
+    ("one more on the redis cache latency alerts", [{"text": "Noted: redis cache latency."}]),
+)
+SEAT_SWAP_AT = 6  # the model swap comes before this turn
+
+
+def seat_now():
+    """The seat step's clock: a day past the server phase's compare clock;
+    each request is pinned one minute after the one before."""
+    from datetime import timedelta
+
+    return engine_now() + timedelta(days=5)
+
+
+def sse_frames(payload: bytes) -> list:
+    """[event type, data] of each SSE frame of a reply's body."""
+    out = []
+    for block in payload.decode().split("\n\n"):
+        if block:
+            head, _, data = block.partition("\n")
+            if not head.startswith("event: ") or not data.startswith("data: "):
+                raise AssertionError(f"seat: not an SSE frame: {block[:200]!r}")
+            out.append([head[7:], json.loads(data[6:])])
+    return out
+
+
+@contextlib.contextmanager
+def seat_spies(conv_cls, spans: dict):
+    """Host ms of each proactive context and of each tool call, by name."""
+    proactive, run_tool = conv_cls._inject_proactive, conv_cls._run_tool
+
+    def timed(fn, key):
+        def spy(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args)
+            finally:
+                spans.setdefault(key(args), []).append((time.perf_counter() - t0) * 1e3)
+        return spy
+
+    conv_cls._inject_proactive = timed(proactive, lambda args: "proactive")
+    conv_cls._run_tool = timed(run_tool, lambda args: args[0])
+    try:
+        yield
+    finally:
+        conv_cls._inject_proactive, conv_cls._run_tool = proactive, run_tool
+
+
+def drive_seat(seat_dir, device, card=False, user: str = SERVER_USER) -> dict:
+    """One side of the seat step: ``make_seat_app`` with a bearer token over
+    ``SeatState(seat_dir, device=device)`` (``seat_dir/users/<user>``: a copy
+    of the served user's store), served in this process on 127.0.0.1:0 and
+    driven over a real socket, each request at a pinned clock, ``uuid4``
+    from a seeded sequence: ``/healthz``, ``/v1/providers``, ``/v1/models``, a
+    401 without the bearer, a conversation of ``SEAT_TURNS`` (its create
+    opens both scopes, timed), a model swap, the conversation, the list, the
+    ledger's events, a revert of a memory write and of a reinforcement, a
+    title, a delete. Returns every reply (SSE bodies as frames) with its host
+    ms, the ledger's lines, the spies' ms and, on the card, K1's launches
+    over the turns."""
+    from datetime import timedelta
+    from pathlib import Path
+
+    from shodh_tpu_torch.seat.conversation import Conversation
+    from shodh_tpu_torch.seat.server import SeatState, make_seat_app
+    from shodh_tpu_torch.server import web
+    from shodh_tpu_torch.utils.clock import pin_now
+    from tools import server_tour as tour
+
+    if not card:
+        import torch
+
+        torch.set_num_threads(SERVER_TWIN_THREADS)
+    t_start = time.perf_counter()
+    rec, replies, spans = {}, [], {}
+    bearer = {"Authorization": f"Bearer {SEAT_TOKEN}"}
+    real_uuid4, clock = uuid.uuid4, [seat_now()]
+    state = SeatState(Path(seat_dir), script=[], device=device)
+    server = web.BackgroundServer(make_seat_app(state, auth_token=SEAT_TOKEN))
+    client = tour.HttpClient(f"http://127.0.0.1:{server.port}")
+    script = state.registry._scripted.script  # the turns' replies join it turn by turn
+
+    def call(label, method, path, body=None, headers=bearer):
+        clock[0] += timedelta(minutes=1)
+        pin_now(clock[0])
+        hdrs = dict(headers)
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            hdrs["Content-Type"] = "application/json"
+        t0 = time.perf_counter()
+        status, got, payload = client.request_raw(method, path, data, hdrs)
+        ms = (time.perf_counter() - t0) * 1e3
+        if got.get("content-type", "").startswith("text/event-stream"):
+            body = {"headers": {k: got.get(k) for k in ("content-type", "cache-control")},
+                    "frames": sse_frames(payload)}
+        else:
+            body = tour.parse_reply(payload)
+        replies.append({"label": label, "status": status, "body": body, "ms": ms})
+        return status, body
+
+    try:
+        uuid.uuid4 = SeededUuid4(SEAT_SEED)
+        call("healthz", "GET", "/healthz", headers={})
+        call("providers", "GET", "/v1/providers")
+        call("models", "GET", "/v1/models")
+        call("unauthorized", "GET", "/v1/models", headers={})
+        status, made = call("create", "POST", "/v1/conversations",
+                            {"user_id": user, "provider": "scripted", "model": "scripted-v1"})
+        if status != 201:
+            raise AssertionError(f"seat: creating the conversation answered {status}: {made}")
+        rec["open_s"] = replies[-1]["ms"] / 1e3
+        cid = made["id"]
+        system = state.system_for(user)
+        rec["index_rows"], rec["memories_before"] = len(system.index), system.storage.count()
+        cite = {"cite": "none", "cite_text": ""}
+        if card:
+            reset_launches()
+        with seat_spies(Conversation, spans):
+            for j, (text, steps) in enumerate(SEAT_TURNS):
+                if j == SEAT_SWAP_AT:
+                    call("swap", "PATCH", f"/v1/conversations/{cid}/model",
+                         {"provider": "scripted", "model": "scripted-v2"})
+                script.extend({**st, "text": st["text"].format(**cite)} if "text" in st
+                              else st for st in steps)
+                _, body = call(f"turn:{j}", "POST", f"/v1/conversations/{cid}/messages",
+                               {"text": text})
+                recalled = [d["results"] for k, d in body["frames"] if k == "memory_recall"]
+                if j == 0 and recalled and recalled[0]:
+                    top = recalled[0][0]
+                    cite = {"cite": top["id"][:8], "cite_text": top["content"][:80]}
+            _sync(device)
+        if card:
+            rec["launches"] = read_launches()
+        if script:
+            raise AssertionError(f"seat: {len(script)} scripted replies were not asked for")
+        call("conversation", "GET", f"/v1/conversations/{cid}")
+        call("list", "GET", f"/v1/conversations?user_id={user}")
+        _, events = call("ledger", "GET", f"/v1/learning/events?conversation_id={cid}")
+        events = events["events"]
+        write = next((e for e in events if e["kind"] == "memory_write"
+                      and e["detail"].get("scope") is None), None)
+        reinforce = next((e for e in events if e["kind"] == "reinforce"
+                          and e["detail"]["outcome"] != "neutral"), None)
+        if write is None or reinforce is None:
+            raise AssertionError(f"seat: no memory write or reinforcement to revert: {events}")
+        call("revert_write", "POST", "/v1/learning/revert", {"event_id": write["event_id"]})
+        call("revert_reinforce", "POST", "/v1/learning/revert",
+             {"event_id": reinforce["event_id"]})
+        call("title", "PATCH", f"/v1/conversations/{cid}", {"title": "the seat on the card"})
+        call("delete", "DELETE", f"/v1/conversations/{cid}")
+        call("gone", "GET", f"/v1/conversations/{cid}")
+        rec["memories_after"] = system.storage.count()
+    finally:
+        uuid.uuid4 = real_uuid4
+        pin_now(None)
+        client.close()
+        server.stop()
+        t0 = time.perf_counter()
+        state.close()
+        rec["close_s"] = time.perf_counter() - t0
+    ledger = Path(seat_dir) / "learning-ledger.jsonl"
+    rec["ledger"] = [json.loads(line) for line in ledger.read_text().splitlines()]
+    rec.update(replies=replies, spans=spans, side_s=time.perf_counter() - t_start)
+    return rec
+
+
+SEAT_STATUSES = {"healthz": 200, "providers": 200, "models": 200, "unauthorized": 401,
+                 "create": 201, "swap": 200, "conversation": 200, "list": 200, "ledger": 200,
+                 "revert_write": 200, "revert_reinforce": 200, "title": 200, "delete": 200,
+                 "gone": 404}
+
+
+def check_seat(card: dict, twin: dict, card_dir, twin_dir, expect_k1: bool) -> dict:
+    """The seat step's card side against its twin: every reply (its status;
+    its JSON or each SSE frame with ids in order, floats rtol 1e-5, atol
+    1e-7, ``tour.EXCLUDED_KEYS`` and the data dir masked), the ledger's
+    lines, and no tool failure on the card that the twin does not have;
+    then the loops armed (both settlement legs, the harness injection, a
+    write, a tool failure, no ``error`` frame), the routes' statuses, and
+    K1 on the card's turns. Returns the step's record."""
+    from collections import Counter
+
+    from tools import server_tour as tour
+
+    if [r["label"] for r in card["replies"]] != [r["label"] for r in twin["replies"]]:
+        raise AssertionError("seat: the twin answered other requests")
+    failures = {side: [(r["label"], d["tool"]) for r in rec["replies"]
+                       if r["label"].startswith("turn:")
+                       for k, d in r["body"]["frames"] if k == "tool_call_end" and not d["ok"]]
+                for side, rec in (("card", card), ("twin", twin))}
+    unmatched = [f for f in failures["card"] if f not in failures["twin"]]
+    if unmatched:
+        raise AssertionError(f"seat: tool failures on the card only: {unmatched}")
+    checked = Counter()
+    for got, want in zip(card["replies"], twin["replies"]):
+        if got["status"] != want["status"]:
+            raise AssertionError(f"seat {got['label']}: status {got['status']} != the twin's "
+                                 f"{want['status']}: {tour.short(got['body'])}")
+        diffs = tour.differences(tour.normalize(got["body"], card_dir),
+                                 tour.normalize(want["body"], twin_dir))
+        if diffs:
+            raise AssertionError(f"seat {got['label']}: differs from the twin: {diffs[:4]}")
+        checked["replies"] += 1
+        if got["label"].startswith("turn:"):
+            checked["frames"] += len(got["body"]["frames"])
+    diffs = tour.differences(card["ledger"], twin["ledger"])
+    if diffs:
+        raise AssertionError(f"seat: the ledger differs from the twin's: {diffs[:4]}")
+    checked["ledger_lines"] = len(card["ledger"])
+    kinds = Counter(k for r in card["replies"] if r["label"].startswith("turn:")
+                    for k, _ in r["body"]["frames"])
+    legs = Counter(f"{e['detail']['leg']}:{e['detail']['outcome']}" for e in card["ledger"]
+                   if e["kind"] == "reinforce")
+    statuses = {r["label"]: r["status"] for r in card["replies"] if r["label"] in SEAT_STATUSES}
+    if statuses != SEAT_STATUSES:
+        raise AssertionError(f"seat: statuses {statuses}")
+    if (not any(leg.startswith("implicit:") for leg in legs)
+            or not any(leg.startswith("explicit:") for leg in legs)
+            or not kinds["harness_learning_applied"] or not kinds["memory_write"]
+            or not failures["card"] or kinds["error"]):
+        raise AssertionError(f"seat: the learning loops did not all arm: legs {dict(legs)}, "
+                             f"events {dict(kinds)}")
+    k1 = card.get("launches", {}).get("groupmax", 0)
+    if expect_k1 and (k1 < 1 or card["launches"]["v3_pass1"] or card["launches"]["v4_pass1"]):
+        raise AssertionError(f"seat: K1 launched {k1} times on the seat's turns "
+                             f"({card.get('launches')})")
+    turns = [r["ms"] for r in card["replies"] if r["label"].startswith("turn:")]
+    spans = card["spans"]
+    # each recall tool call's own stage clock (``MemorySystem.recall``'s
+    # ``stage_timings_ms``, which the comparison masks), by turn
+    stages = [(r["label"], {k: round(v, 1) for k, v in d["stage_timings_ms"].items()})
+              for r in card["replies"] if r["label"].startswith("turn:")
+              for k, d in r["body"]["frames"] if k == "memory_recall"]
+    return {"open_s": card["open_s"], "index_rows": card["index_rows"],
+            "memories_before": card["memories_before"], "memories_after": card["memories_after"],
+            "turn_ms": _ms(turns),
+            "proactive_ms": _ms(spans.get("proactive", [])),
+            "recall_tool_ms": _ms(spans.get("recall_memory", [])),
+            "remember_tool_ms": _ms(spans.get("remember_memory", [])),
+            "recall_stages_ms": stages, "k1_launches": k1, "launches": card.get("launches"), "legs": dict(legs),
+            "events": dict(kinds), "tool_failures": failures["card"],
+            "twin_checked": dict(checked), "close_s": card["close_s"],
+            "card_side_s": card["side_s"], "twin_side_s": twin["side_s"],
+            "twin_open_s": twin["open_s"]}
+
+
+def seat_copies(data_dir, work) -> tuple:
+    """The seat step's two copies of the served user's store, the card's and
+    the twin's (``seat_card`` and ``seat_twin`` under ``work``), and the
+    seconds they took."""
+    import shutil
+    from pathlib import Path
+
+    dirs = Path(work) / "seat_card", Path(work) / "seat_twin"
+    t0 = time.perf_counter()
+    for dest in dirs:
+        shutil.copytree(Path(data_dir) / "users" / SERVER_USER, dest / "users" / SERVER_USER)
+    return (*dirs, time.perf_counter() - t0)
+
+
+class SeatSide:
+    """One side of the seat step in a process of its own: ``drive_seat``
+    over ``seat_dir`` on ``device`` (``card``: the card's side, which counts
+    K1's launches in that process); ``result()`` waits for its record."""
+
+    def __init__(self, seat_dir, device, card=False):
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self._job = self._pool.submit(drive_seat, str(seat_dir), device, card)
+
+    def result(self) -> dict:
+        try:
+            return self._job.result()
+        finally:
+            self._pool.shutdown()
+
+    def kill(self) -> None:
+        for proc in list(self._pool._processes.values()):
+            proc.kill()
+        self._pool.shutdown(cancel_futures=True)
+
+
+def phase_seat(data_dir, work, device="cuda", expect_k1=True) -> dict:
+    """The seat step on its own over the served user's store: its two
+    copies (``seat_copies``), the card's side and the CPU twin each in a
+    process of its own (``SeatSide``), then ``check_seat``. The server phase
+    runs the same sides beside its own work instead."""
+    t0 = time.perf_counter()
+    card_dir, twin_dir, copy_s = seat_copies(data_dir, work)
+    sides = SeatSide(card_dir, device, card=True), SeatSide(twin_dir, "cpu")
+    try:
+        card, twin = (side.result() for side in sides)
+    except BaseException:
+        for side in sides:
+            side.kill()
+        raise
+    rec = check_seat(card, twin, card_dir, twin_dir, expect_k1)
+    rec.update(copy_s=copy_s, step_s=time.perf_counter() - t0)
+    return rec
+
+
+class SeatAfter:
+    """The server phase's seat step on the card: a ``SeatSide`` over
+    ``seat_dir``, started from a thread of this process once the future
+    ``after`` (the server twin's drive) is done, so that it runs beside the
+    twin's own seat side and the server's card side, not beside both twins'
+    drives; ``result()`` waits for its record."""
+
+    def __init__(self, after, seat_dir, device):
+        import threading
+
+        self._lock, self._side, self._killed, self.started = threading.Lock(), None, False, None
+        self._starter = concurrent.futures.ThreadPoolExecutor(1)
+        self._job = self._starter.submit(self._run, after, seat_dir, device)
+
+    def _run(self, after, seat_dir, device) -> dict:
+        concurrent.futures.wait([after])
+        with self._lock:
+            if self._killed or after.cancelled() or after.exception() is not None:
+                raise RuntimeError("seat: the step was stopped, or the twin failed, before "
+                                   "it started")
+            self.started = time.perf_counter()
+            self._side = SeatSide(seat_dir, device, card=True)
+        return self._side.result()
+
+    def result(self) -> dict:
+        try:
+            return self._job.result()
+        finally:
+            self._starter.shutdown()
+
+    def kill(self) -> None:
+        with self._lock:
+            self._killed = True
+            if self._side is not None:
+                self._side.kill()
+
+
 class ServerTwin:
     """The server phase's CPU twin: ``start()`` copies the served user's
-    store (before anything writes to it) and runs ``drive_server`` on the
-    CPU over the copy in a process of its own, which builds the same script
-    from its copy; ``result()`` waits for it. ``phase_server`` runs it beside
-    the card's side."""
+    store (before anything writes to it), and the seat step's two copies
+    (``seat_copies``), and runs on the CPU in a process of its own
+    ``drive_server`` over the first copy, which builds the same script from
+    it (``drive``, its future; ``result()`` waits for it), then the seat
+    step's ``drive_seat`` over the seat's twin copy (``seat()``).
+    ``phase_server`` runs it beside the card's side."""
 
     def __init__(self, data_dir, work, sizes: dict | None = None):
         from pathlib import Path
@@ -4055,7 +4531,7 @@ class ServerTwin:
         self.data_dir, self.work = Path(data_dir), Path(work)
         self.twin_data, self.twin_work = self.work / "twin", self.work / "twin_work"
         self.sizes = sizes
-        self._pool = self._job = None
+        self._pool = self.drive = self._seat = None
 
     def start(self) -> None:
         import shutil
@@ -4064,17 +4540,24 @@ class ServerTwin:
         shutil.copytree(self.data_dir / "users" / SERVER_USER,
                         self.twin_data / "users" / SERVER_USER)
         self.copy_s = time.perf_counter() - t0
+        self.seat_copies = seat_copies(self.data_dir, self.work)
         self.twin_work.mkdir(parents=True)
         self._pool = concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn"))
-        self._job = self._pool.submit(drive_server, str(self.twin_data), "cpu",
-                                      str(self.twin_work), sizes=self.sizes)
+        # one worker: the seat's drive follows the server's in the same process
+        self.drive = self._pool.submit(drive_server, str(self.twin_data), "cpu",
+                                       str(self.twin_work), sizes=self.sizes)
+        self._seat = self._pool.submit(drive_seat, str(self.seat_copies[1]), "cpu")
 
     def result(self) -> dict:
+        return self.drive.result()
+
+    def seat(self) -> dict:
         try:
-            return self._job.result()
+            return self._seat.result()
         finally:
             self._pool.shutdown()
+
 
     def kill(self) -> None:
         """End the twin at once (the card's side failed)."""
@@ -4096,7 +4579,10 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
     stream's stored memories to the twin's; then three processes at once
     over the stopped store: ``cli serve`` on the card, ``cli fsck`` on the
     card (it must say ok) and ``cli fsck --repair`` on the card over a
-    damaged copy of the tour's MIF user, whose report must equal the twin's."""
+    damaged copy of the tour's MIF user, whose report must equal the twin's.
+    Beside it all runs the seat step's card side (``SeatSide``, over a copy
+    of the store the phase starts from; its twin runs in ``ServerTwin``'s
+    process after the twin's drive), held to its twin by ``check_seat``."""
     from collections import Counter
     from pathlib import Path
 
@@ -4107,6 +4593,11 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
     rec = {"phase": "server"}
     twin = ServerTwin(data_dir, work, sizes)
     twin.start()
+    # the seat step's card side over its copy of the store the phase starts
+    # from, in a process of its own once the twin's drive has ended, beside
+    # the twin's seat side and the rest of this side's drive
+    seat_dir, seat_twin_dir, seat_copy_s = twin.seat_copies
+    seat = SeatAfter(twin.drive, seat_dir, device)
     card_work = work / "card_work"
     card_work.mkdir(parents=True)
     try:
@@ -4119,12 +4610,22 @@ def phase_server(data_dir, work, device="cuda", expect_k1=True,
                     pool.submit(_fsck_cli, data_dir, SERVER_USER, device),
                     pool.submit(fsck_repair, data_dir, card_work, device)]
             cli, fsck, repair = (j.result() for j in jobs)
+        t0 = time.perf_counter()
+        seat_card = seat.result()
+        seat_wait_s = time.perf_counter() - t0
     except BaseException:
+        seat.kill()
         twin.kill()  # else the twin runs on over a store about to be removed
         raise
     t0 = time.perf_counter()
     twin_rec = twin.result()
     rec["twin_wait_s"], rec["copy_s"] = time.perf_counter() - t0, twin.copy_s
+    t0 = time.perf_counter()
+    seat_twin = twin.seat()
+    t1 = time.perf_counter()
+    rec["seat"] = check_seat(seat_card, seat_twin, seat_dir, seat_twin_dir, expect_k1)
+    rec["seat"].update(copy_s=seat_copy_s, start_s=seat.started - t_phase, wait_s=seat_wait_s,
+                       twin_wait_s=t1 - t0, check_s=time.perf_counter() - t1)
     if fsck["exit"] != 0 or not fsck["report"]["ok"]:
         raise AssertionError(f"server: fsck of the served store: exit {fsck['exit']}: "
                              f"{fsck['report']}")
@@ -4806,9 +5307,10 @@ def main() -> int:
                                       n_staged=STAGED_RECALLS_CARD, beside_twin=serve)
             emit(rec_system)
             rec_server = served["rec"]
-        rec_clients = rec_server.pop("clients")
+        rec_clients, rec_seat = rec_server.pop("clients"), rec_server.pop("seat")
         emit({**rec_server, "card": card})
         emit({"phase": "clients", **rec_clients, "card": card})
+        emit({"phase": "seat", **rec_seat, "card": card})
     torch.cuda.empty_cache()
     emit({"phase": "total", "script_s": time.perf_counter() - _START})
 
@@ -4831,6 +5333,7 @@ def main() -> int:
          "server_launches": rec_server["k1_launches"],
          "stream_launches": rec_server["stream"]["k1_launches"],
          "clients_launches": rec_clients["k1_launches"],
+         "seat_launches": rec_seat["k1_launches"],
          "staged_launches": rec_system["staged_launches"]["groupmax"],
          "b8_ms": rec_system["k1_b8"]["ms"], "b8_plain_ms": rec_system["k1_b8"]["plain_ms"],
          "b8_bound_ms": rec_system["k1_b8"]["bound_ms"],

@@ -402,6 +402,9 @@ INTERFERENCE_MAX_TRACKED = 10
 INTERFERENCE_ACTIVATION_FLOOR = 0.05
 COMPETITION_SUPPRESSED_DEMOTION = 0.9
 
+# Proactive surfacing
+INJECTION_MIN_RELEVANCE = 0.50  # injection.rs:136 — floor for proactive surfacing
+
 # Replay and its pattern detection
 REPLAY_IMPORTANCE_THRESHOLD = 0.3
 REPLAY_MAX_AGE_DAYS = 14

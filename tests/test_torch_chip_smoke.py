@@ -136,3 +136,48 @@ def test_chip_smoke_train_ivf_parallel_phases_on_the_cpu():
     assert phases["parallel"]["dryrun"]["pool"]["bit_equal"]
     for rank in phases["parallel"]["sharded"]["ranks"]:
         assert rank["int8"]["bit_equal"] and rank["pool"]["rows"] == 1 << 13
+
+
+def test_chip_smoke_seat_step_on_the_cpu():
+    """``tools/torch_server_rehearsal.py --cpu --memories 300 --seat-only``:
+    the server phase's seat step over a small quiet store, its CPU twin in a
+    process of its own (under the script's string hash seed), every reply,
+    SSE frame and ledger line equal; the learning loops armed (both
+    settlement legs, the harness injection, the unknown tool's failure on
+    both sides, a write), the write and a reinforcement reverted."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONHASHSEED="0", OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "tools/torch_server_rehearsal.py", "--cpu",
+                          "--memories", "300", "--seat-only"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    turns = len(cs.SEAT_TURNS)
+    assert rec["phase"] == "seat" and rec["memories_before"] == rec["index_rows"] == 324
+    assert rec["memories_after"] == 324  # the one write, reverted by the ledger
+    assert rec["turn_ms"]["calls"] == rec["proactive_ms"]["calls"] == turns
+    assert rec["recall_tool_ms"]["calls"] == 4 and rec["remember_tool_ms"]["calls"] == 1
+    assert rec["twin_checked"]["replies"] == len(cs.SEAT_STATUSES) + turns
+    assert rec["twin_checked"]["frames"] == sum(rec["events"].values()) > 9 * turns
+    assert rec["tool_failures"] == [["turn:3", "fetch_weather"]]
+    assert rec["events"]["harness_learning_applied"] >= 1 and "error" not in rec["events"]
+    assert {leg.split(":")[0] for leg in rec["legs"]} == {"implicit", "explicit"}
+    assert rec["k1_launches"] == 0  # K1 runs past 65,536 rows, on the card
+
+
+def test_sse_frames_parse_the_seat_stream():
+    from shodh_tpu_torch.seat.events import event, sse_frame
+
+    evs = [event("turn_start", turn=0, provider="scripted", model="m"),
+           event("text_delta", text="two\\nlines: and a data: marker"), event("agent_end")]
+    payload = "".join(sse_frame(e) for e in evs).encode()
+    assert cs.sse_frames(payload) == [[e["type"], e] for e in evs]
+    with pytest.raises(AssertionError, match="not an SSE frame"):
+        cs.sse_frames(b"data: {}\n\n")

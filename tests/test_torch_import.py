@@ -143,6 +143,20 @@ PORT_MODULES = [
     "shodh_tpu_torch.index.pq",
     "shodh_tpu_torch.index.ivf",
     "shodh_tpu_torch.index.backend",
+    "shodh_tpu_torch.seat",
+    "shodh_tpu_torch.seat.__main__",
+    "shodh_tpu_torch.seat.conversation",
+    "shodh_tpu_torch.seat.events",
+    "shodh_tpu_torch.seat.ledger",
+    "shodh_tpu_torch.seat.providers",
+    "shodh_tpu_torch.seat.server",
+    "shodh_tpu_torch.seat.store",
+    "shodh_tpu_torch.nlp.appositive",
+    "shodh_tpu_torch.nlp.catena",
+    "shodh_tpu_torch.nlp.kb",
+    "shodh_tpu_torch.nlp.relation_typer",
+    "shodh_tpu_torch.nlp.yake",
+    "shodh_tpu_torch.engine.learning_history",
     "tools.server_tour",
     "tools.client_tour",
     "tools.torch_slice_phases",
@@ -176,7 +190,8 @@ def test_every_port_module_is_listed():
             "shodh_tpu_torch.models", "shodh_tpu_torch.utils", "shodh_tpu_torch.graph",
             "shodh_tpu_torch.retrieval", "shodh_tpu_torch.harness",
             "shodh_tpu_torch.server", "shodh_tpu_torch.clients",
-            "shodh_tpu_torch.clients.tui", "shodh_tpu_torch.parallel"} <= subpackages
+            "shodh_tpu_torch.clients.tui", "shodh_tpu_torch.parallel",
+            "shodh_tpu_torch.seat"} <= subpackages
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -198,6 +213,21 @@ def test_server_app_alone_imports_neither_jax_nor_aiohttp():
     """A fresh process that imports the port's server (as ``cli serve`` does)."""
     code = ("import sys\n"
             "import shodh_tpu_torch.server.app, shodh_tpu_torch.server.local_ipc\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_ABSENT!r})\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_seat_server_alone_imports_neither_jax_nor_aiohttp():
+    """A fresh process that imports the port's seat server (as ``python -m
+    shodh_tpu_torch.seat`` does): its HTTP layer is the port's own."""
+    code = ("import sys\n"
+            "import shodh_tpu_torch.seat.server\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_ABSENT!r})\n"
             "assert not bad, bad\n"
             "print('clean')\n")

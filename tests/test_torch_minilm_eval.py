@@ -76,7 +76,7 @@ def test_smoke_eval_with_minilm_equals_the_reference_dump(tmp_path):
 
 
 def test_chip_smoke_minilm_phase_on_the_cpu(tmp_path):
-    """Parts (a) and (c)-(f) of the phase, small: the CPU plays the card
+    """Parts (a) and (c)-(g) of the phase, small: the CPU plays the card
     (K1 runs only past 65,536 rows, on the card)."""
     rec = chip_smoke.phase_minilm(tmp_path, device="cpu", n=768, n_more=256, n_gliner=24,
                                   expect_k1=False, timings=False)
@@ -84,3 +84,6 @@ def test_chip_smoke_minilm_phase_on_the_cpu(tmp_path):
     assert set(rec["vs_cpu_max_abs"]) == {"f32_int8", "f32", "bf16_int8"}
     assert rec["gliner_spans"] > 0 and rec["eval_embedder"] == "minilm-l6-v2-jax"
     assert rec["ingest"]["tokens"] <= rec["ingest"]["padded_tokens"]
+    # (g): the knowledge base and the relation typer over the embedder
+    assert rec["library"]["links"][:2] == ["Q1", "Q2"] and rec["library"]["links"][-1] is None
+    assert len(rec["library"]["relations"]) == len(chip_smoke.RELATION_SENTENCES)

@@ -566,8 +566,11 @@ def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
     replica --cpu``) follows the writer to its index length and exits 0 on
     SIGINT, and a replica opened over the quiet store answers 16 recalls as
     the served user does and exits 0; ``cli fsck`` says the stopped store is
-    ok, ``cli fsck --repair`` of a damaged copy reports as the twin's; and
-    ``cli serve`` reopens the stopped store quietly and exits 0 on SIGINT."""
+    ok, ``cli fsck --repair`` of a damaged copy reports as the twin's;
+    ``cli serve`` reopens the stopped store quietly and exits 0 on SIGINT;
+    and beside those three the seat step over a copy of the store the phase
+    started from answers as its twin, run after the server twin's drive,
+    does."""
     import chip_smoke as cs
 
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -615,3 +618,9 @@ def test_chip_smoke_server_phase_on_the_cpu(tmp_path):
     assert clients["mcp_errors"] == ["tool_error"] and clients["mcp_stdio_exit"] == 0
     checks = clients["cli_checks"]  # on the card's side: doctor, version, init, setup-models
     assert checks["setup_models"]["exit"] == 0 and checks["setup_models_offline"]["exit"] == 1
+    # the seat step, over copies of the store the phase started from, beside
+    # the cli checks; its twin in the server twin's process
+    seat = rec["seat"]
+    assert seat["twin_checked"]["replies"] == len(cs.SEAT_STATUSES) + len(cs.SEAT_TURNS)
+    assert seat["memories_before"] == rec["memories_before"] == seat["memories_after"]
+    assert seat["tool_failures"] == [["turn:3", "fetch_weather"]] and seat["k1_launches"] == 0

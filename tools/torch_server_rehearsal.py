@@ -7,6 +7,7 @@ server or its clients on the card; the tests run it with ``--cpu`` at 300.
 
     python3 tools/torch_server_rehearsal.py                       # the card
     python3 tools/torch_server_rehearsal.py --cpu --memories 300  # the CPU
+    python3 tools/torch_server_rehearsal.py --cpu --memories 300 --seat-only
 
 It prints the phase's record (every reply checked against the twin, the
 clients step's seconds) and the total seconds as its last line, one JSON
@@ -32,6 +33,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cpu", action="store_true", help="run the card's side on the CPU")
     p.add_argument("--memories", type=int, default=2000, help="turns in the served store")
+    p.add_argument("--seat-only", action="store_true",
+                   help="run only the phase's seat step (``phase_seat``) over the store")
     args = p.parse_args()
     device = "cpu" if args.cpu else "cuda"
     t0 = time.perf_counter()
@@ -46,9 +49,13 @@ def main() -> int:
                                              n_in_place=4, n_timed=4)
         cs.make_store_quiet(holder, store)
         del holder, engines
-        out = cs.phase_server(data_dir, work, device=device, expect_k1=False, n_concurrent=3,
-                              sizes=dict(n_recalls=3, n_batch=64, n_single=3, n_proactive=2,
-                                         n_stream=24))
+        if args.seat_only:
+            out = {"phase": "seat", **cs.phase_seat(data_dir, work, device=device,
+                                                    expect_k1=False)}
+        else:
+            out = cs.phase_server(data_dir, work, device=device, expect_k1=False,
+                                  n_concurrent=3, sizes=dict(n_recalls=3, n_batch=64, n_single=3,
+                                                             n_proactive=2, n_stream=24))
     print(json.dumps(out | {"total_s": time.perf_counter() - t0}))
     return 0
 
