@@ -1,0 +1,7 @@
+"""Share of the traced query window with no operation on the device, %."""
+
+from benchlib import measure
+
+
+def read(run):
+    return measure.device_idle(run, "query")

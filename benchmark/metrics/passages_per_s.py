@@ -1,0 +1,7 @@
+"""Passages embedded, appended and flushed in the window over the window's seconds."""
+
+from benchlib import measure
+
+
+def read(run):
+    return measure.rate(run, "ingest")
