@@ -1,10 +1,11 @@
 """One run of one cell: set-up, the measured window, the check.
 
-The system under test is the program's own entry: ``default_embedder``
-(``CachedEmbedder`` over ``MiniLMEmbedder``, over a checkpoint the set-up
-writes under ``TMPDIR``) and a ``DeviceVectorIndex`` of the configuration's
-dtype. A query call is ``encode_batch(texts)`` then ``search(vectors, k)``;
-an ingest call is ``encode_batch(passages)``, ``add(vectors)``, ``flush()``.
+The system under test is the program's own entry: the embedder that the
+configuration's encoder family makes through the program's normal entry
+(over weights the set-up draws from the seed and files it writes under
+``TMPDIR``) and a ``DeviceVectorIndex`` of the configuration's dtype. A
+query call is ``encode_batch(texts)`` then ``search(vectors, k)``; an
+ingest call is ``encode_batch(passages)``, ``add(vectors)``, ``flush()``.
 One client, closed loop: each call starts when the previous one returns.
 Every text of a run is distinct and made in set-up: a first pool sized by
 the traffic's ``pool_items_per_s``, then, where the warm-up's fastest call
@@ -17,7 +18,6 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
-import os
 import shutil
 import sys
 import tempfile
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from benchlib import check, inputs, textgen
+from benchlib import spec as spec_mod
 from benchlib import trace as trace_mod
 
 # Window texts made at the least: this many times what the warm-up's fastest
@@ -55,10 +56,12 @@ class Run:
     setup_s: float
     calls: list = field(default_factory=list)
     window_s: float = 0.0
-    real_tokens: int | None = None  # counted from the padded batches the embedder shows
+    real_tokens: int | None = None  # counted by the family's probe on the embedder
     padded_tokens: int | None = None
     trace: trace_mod.Trace | None = None
     served_texts: list = field(default_factory=list)
+    family: object = None  # the configuration's encoder family module
+    reference: object = None  # the family's reference, made once the window has closed
     _ref_lengths: list | None = None
 
     @property
@@ -68,33 +71,8 @@ class Run:
     def ref_lengths(self) -> list[int]:
         """Token count of every served text by the reference tokenizer."""
         if self._ref_lengths is None:
-            from reference.wordpiece import WordPiece
-
-            wp = WordPiece(textgen.vocabulary(self.config["model"]["vocab_size"],
-                                              self.config["model"]["vocab_seed"]))
-            cap = self.config["model"]["max_tokens"]
-            self._ref_lengths = [len(wp.encode(t, cap)) for t in self.served_texts]
+            self._ref_lengths = [len(ids) for ids in self.reference.token_ids(self.served_texts)]
         return self._ref_lengths
-
-
-class PaddedBatches:
-    """Records the (ids, mask) batches the embedder pads, where it shows
-    them (``MiniLMEmbedder.encode_padded``). Where it does not, or shows
-    other than one batch a call, the run's token check fails (``_served``)
-    and ``padded_token_share`` has nothing to count, which fails a traced
-    ingest run."""
-
-    def __init__(self, embedder):
-        self.batches: list = []
-        inner = getattr(embedder, "inner", embedder)
-        fn = getattr(inner, "encode_padded", None)
-        self.found = fn is not None
-        if self.found:
-            def counted(ids_p, mask_p):
-                self.batches.append((ids_p, mask_p))
-                return fn(ids_p, mask_p)
-
-            inner.encode_padded = counted
 
 
 class Steps:
@@ -110,9 +88,9 @@ class Steps:
 
 
 def _maker(config: dict, spec: dict) -> textgen.TextMaker:
-    words = textgen.whole_words(textgen.vocabulary(config["model"]["vocab_size"],
-                                                   config["model"]["vocab_seed"]))
-    return textgen.TextMaker(words, {**config["texts"]["words"], **spec})
+    family = spec_mod.family(config["model"]["family"])
+    return textgen.TextMaker(family.words(config["model"]), family.SUFFIXES,
+                             {**config["texts"]["words"], **spec})
 
 
 def text_pool(config: dict, traffic: dict, seed: int, n_window: int, n_warm: int):
@@ -162,27 +140,23 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
              traced: bool, device, t_start: float):
     """Set up, measure, check. Returns (Run, checks, failed items, memory
     peak bytes); ``checks`` maps each compared number to (value, limit)."""
-    from shodh_tpu_torch.models.embedder import ENV_MINILM_DIR, default_embedder
-
     if torch.device(device).type == "cuda":
         torch.cuda.init()
     kind, b = traffic["kind"], traffic["batch"]
     model = config["model"]
+    family = spec_mod.family(model["family"])
     k = config["index"]["k"]
     n_window = math.ceil(traffic["pool_items_per_s"] * seconds / b) * b
     steps = Steps(t_start)
     steps.done("start")
     warm_texts, texts = text_pool(config, traffic, seed, n_window, traffic["warmup_calls"] * b)
     steps.done("texts")
-    vocab = textgen.vocabulary(model["vocab_size"], model["vocab_seed"])
-    params = inputs.minilm_params(seed, model, device)
-    ckpt = Path(tempfile.mkdtemp(prefix="bench-minilm-"))
+    weights = family.weights(seed, model, device)
+    workdir = Path(tempfile.mkdtemp(prefix="bench-encoder-"))
     try:
-        inputs.write_checkpoint(ckpt, params, vocab)
-        os.environ[ENV_MINILM_DIR] = str(ckpt)
         steps.done("weights")
-        embedder = default_embedder(device=device)
-        probe = PaddedBatches(embedder)
+        embedder = family.embedder(workdir, weights, model, device)
+        probe = family.Probe(embedder)
         steps.done("embedder")
         index = _index(config, seed, device, empty=kind == "ingest")
         steps.done("index")
@@ -220,11 +194,11 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
                 chunk += 1
             del seen
             steps.done(f"more texts ({chunk} chunks)")
-        probe.batches.clear()
+        probe.clear()
         gc.collect()
         gc.freeze()
         run = Run(kind=kind, config=config, traffic=traffic,
-                  setup_s=time.perf_counter() - t_start)
+                  setup_s=time.perf_counter() - t_start, family=family)
 
         outputs = []
         failed = 0
@@ -256,9 +230,9 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
                                f"calls, {run.window_s:.3f} s into a {seconds} s window")
         peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
         run.served_texts = texts[:len(run.calls) * b]
-        if probe.batches:
-            run.real_tokens = int(sum(m.sum() for _, m in probe.batches))
-            run.padded_tokens = int(sum(m.size for _, m in probe.batches))
+        tokens = probe.tokens()
+        if tokens is not None:
+            run.real_tokens, run.padded_tokens = tokens
         if traced:
             run.trace = trace_mod.read(prof)
 
@@ -269,12 +243,13 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
         gc.collect()
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
-        ref = check.Reference(config, vocab, params, seed, device)
+        run.reference = family.Reference(model, weights, device)
+        ref = check.Reference(config, run.reference, seed, device)
         values = check.numbers(served, ref, kind) if picks else {}
         checks = {name: (value, config["limits"][name]) for name, value in values.items()}
         return run, checks, failed, peak
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def _served(picks, run, outputs, probe, index, kind, b) -> check.Served:
@@ -282,19 +257,9 @@ def _served(picks, run, outputs, probe, index, kind, b) -> check.Served:
     calls = [p // b for p in picks]
     served = check.Served(texts=[run.served_texts[p] for p in picks],
                           vectors=np.stack([outputs[c][0][p % b] for p, c in zip(picks, calls)]))
-    # a text whose padded batch is not read counts as a token mismatch
-    served.token_ids = [None] * len(picks)
-    if not probe.found or len(probe.batches) != len(outputs):
-        print(f"bench: the embedder showed {len(probe.batches)} padded batches for "
-              f"{len(outputs)} calls (encode_padded {'found' if probe.found else 'not found'}); "
-              f"no token ids read, every sampled text counts as a mismatch", file=sys.stderr)
-    else:
-        served.token_ids = []
-        for p, c in zip(picks, calls):
-            ids_p, mask_p = probe.batches[c]
-            n = int(mask_p[p % b].sum())
-            ok = mask_p[p % b, :n].all() and ids_p.shape[0] >= b
-            served.token_ids.append(ids_p[p % b, :n].tolist() if ok else [])
+    # a text whose ids the probe cannot tell (None) counts as a token mismatch
+    ids = probe.token_ids(len(outputs), b)
+    served.token_ids = [ids(c, p % b) if ids else None for p, c in zip(picks, calls)]
     if kind == "query":
         served.scores = np.stack([outputs[c][1][0][p % b] for p, c in zip(picks, calls)])
         served.rows = np.stack([outputs[c][1][1][p % b] for p, c in zip(picks, calls)])

@@ -1,13 +1,12 @@
 """Whether what the timed path produced is correct: the served outputs of a
 sample of the window's texts against the plain reference under
-``benchmark/reference/``, number by number against the configuration's
-limits.
+``benchmark/reference/`` (the encoder family's tokenizer and encoder, and
+exact search), number by number against the configuration's limits.
 
 Numbers (each the worst over the sample):
 
-- ``token_mismatch``: texts whose token ids or mask differ from the
-  reference tokenizer's, or whose padded batch the embedder did not show
-  (exact);
+- ``token_mismatch``: texts whose token ids differ from the reference
+  tokenizer's, or whose ids the family's probe could not read (exact);
 - ``embed_max_abs``: largest element gap between a served unit vector and
   the reference's float64 one;
 - ``bad_rows`` (search): answers that are not a valid row, or repeat one;
@@ -22,9 +21,9 @@ Numbers (each the worst over the sample):
   numbers out of order.
 
 The control (:func:`control_outputs`) puts the reference in the program's
-place, one precision step below what the configuration states: MiniLM's
-products and the scoring in TF32 (operands rounded to 10 mantissa bits,
-float32 sums, the same on any device); int8 rows as int4.
+place, one precision step below what the configuration states: the
+encoder's products and the scoring in TF32 (operands rounded to 10
+mantissa bits, float32 sums, the same on any device); int8 rows as int4.
 """
 
 from __future__ import annotations
@@ -36,9 +35,7 @@ import numpy as np
 import torch
 
 from benchlib import inputs
-from reference import minilm as ref_minilm
 from reference import search as ref_search
-from reference.wordpiece import WordPiece
 
 
 @dataclass
@@ -80,25 +77,15 @@ def sample(n_served: int, lengths: list[int], n_random: int, n_longest: int,
 
 
 class Reference:
-    """The reference over one run's inputs: its vocabulary, weights and
-    corpus, all made from the seed by the benchmark."""
+    """The reference over one run's inputs: ``encoder``, the encoder
+    family's reference over the run's weights, and the corpus, all made
+    from the seed by the benchmark."""
 
-    def __init__(self, config: dict, vocab: list[str], params: dict, seed: int, device):
+    def __init__(self, config: dict, encoder, seed: int, device):
         self.cfg = config
-        self.model = config["model"]
-        self.wp = WordPiece(vocab)
-        self.params = params
+        self.encoder = encoder
         self.seed = seed
         self.device = torch.device(device)
-
-    def token_ids(self, texts: list[str]) -> list[list[int]]:
-        return [self.wp.encode(t, self.model["max_tokens"]) for t in texts]
-
-    def embed(self, ids: list[list[int]], dtype, mm=torch.matmul) -> torch.Tensor:
-        with tf32_off():
-            w = ref_minilm.served_weights(self.params, self.model["int8_weights"], dtype,
-                                          self.device)
-            return ref_minilm.encode(w, ids, self.model["heads"], self.model["ln_eps"], mm)
 
     def blocks(self, dtype: str):
         idx = self.cfg["index"]
@@ -127,12 +114,13 @@ def _quantize(v: torch.Tensor, levels: int) -> torch.Tensor:
 def numbers(served: Served, ref: Reference, kind: str) -> dict:
     """The compared numbers of ``served`` against ``ref`` (name -> value);
     a text whose token ids were not read counts as a token mismatch."""
-    ids = ref.token_ids(served.texts)
+    ids = ref.encoder.token_ids(served.texts)
     out: dict = {}
     got_ids = served.token_ids or [None] * len(ids)
     out["token_mismatch"] = sum(got is None or list(got) != want
                                 for got, want in zip(got_ids, ids))
-    ref_vec = ref.embed(ids, torch.float64)
+    with tf32_off():
+        ref_vec = ref.encoder.embed(ids, torch.float64)
     got_vec = torch.as_tensor(served.vectors, device=ref.device).to(torch.float64)
     out["embed_max_abs"] = float((got_vec - ref_vec).abs().max())
     if kind == "query":
@@ -162,8 +150,9 @@ def numbers(served: Served, ref: Reference, kind: str) -> dict:
 def control_outputs(texts: list[str], ref: Reference, kind: str) -> Served:
     """The reference in the program's place, one precision step below the
     configuration's: what the control serves for ``texts``."""
-    ids = ref.token_ids(texts)
-    vec = ref.embed(ids, torch.float32, tf32_mm)
+    ids = ref.encoder.token_ids(texts)
+    with tf32_off():
+        vec = ref.encoder.embed(ids, torch.float32, tf32_mm)
     served = Served(texts=texts, vectors=vec.cpu().numpy(), token_ids=ids)
     dtype = ref.cfg["index"]["dtype"]
     if kind == "query":

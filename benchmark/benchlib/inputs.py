@@ -1,5 +1,5 @@
-"""Inputs made from ``--seed``: corpus rows and MiniLM weights on the device,
-and the checkpoint directory the embedder loads.
+"""Inputs made from ``--seed``: the corpus rows on the device, and the seed of
+every stream (the encoder family draws its weights from one of its own).
 
 Every stream has a seed of its own, derived from the run's seed and a tag,
 so the rows, the weights and the texts do not move when another stream
@@ -9,7 +9,6 @@ changes. The same seed gives the same inputs on the same kind of device.
 from __future__ import annotations
 
 import zlib
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,46 +55,3 @@ def host_rows(seed: int, n_rows: int, dim: int, dtype: str, device):
         rows[start:start + len(v)] = v.cpu().numpy()
         scales[start:start + len(v)] = s.cpu().numpy()
     return rows, scales
-
-
-def minilm_params(seed: int, model: dict, device) -> dict:
-    """MiniLM weights in the checkpoint's pytree (numpy f32), drawn in one
-    call on ``device``: matrices and biases N(0, 0.02), LayerNorm gains
-    1 + N(0, 0.02). Biases and gains are not left at 0 and 1, so a forward
-    that drops one of them does not agree with the reference."""
-    h, f, v = model["hidden"], model["ffn"], model["vocab_size"]
-    shapes = {"word_emb": (v, h), "pos_emb": (model["max_position"], h),
-              "type_emb": (model["type_vocab"], h), "emb_ln_g": (h,), "emb_ln_b": (h,)}
-    layer = {"q_w": (h, h), "q_b": (h,), "k_w": (h, h), "k_b": (h,), "v_w": (h, h),
-             "v_b": (h,), "o_w": (h, h), "o_b": (h,), "attn_ln_g": (h,), "attn_ln_b": (h,),
-             "ffn_in_w": (h, f), "ffn_in_b": (f,), "ffn_out_w": (f, h), "ffn_out_b": (h,),
-             "ffn_ln_g": (h,), "ffn_ln_b": (h,)}
-    leaves = list(shapes.items())
-    for i in range(model["layers"]):
-        leaves += [(f"layers/{i}/{k}", s) for k, s in layer.items()]
-    total = sum(int(np.prod(s)) for _, s in leaves)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(stream_seed(seed, "minilm"))
-    draw = (torch.randn(total, generator=gen, device=device) * 0.02).cpu().numpy()
-    flat, at = {}, 0
-    for key, shape in leaves:
-        n = int(np.prod(shape))
-        a = draw[at:at + n].reshape(shape)
-        flat[key] = a + np.float32(1.0) if key.endswith("_ln_g") else a
-        at += n
-    params = {k: flat[k] for k in shapes}
-    params["layers"] = [{k: flat[f"layers/{i}/{k}"] for k in layer} for i in range(model["layers"])]
-    return params
-
-
-def write_checkpoint(dest: Path, params: dict, vocab: list[str]) -> Path:
-    """A checkpoint directory as MiniLM checkpoints ship for the program:
-    ``model.npz`` (flat keys ``name`` and ``layers/<i>/<name>``) and
-    ``vocab.txt``."""
-    dest.mkdir(parents=True, exist_ok=True)
-    flat = {k: v for k, v in params.items() if k != "layers"}
-    for i, lp in enumerate(params["layers"]):
-        flat.update({f"layers/{i}/{k}": v for k, v in lp.items()})
-    np.savez(dest / "model.npz", **flat)
-    (dest / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
-    return dest

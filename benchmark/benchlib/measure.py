@@ -58,12 +58,13 @@ def search_roofline(run):
 
 def step_mfu(run, kind: str):
     """Operations the window's inputs need (the encoder at each text's real
-    length, and 2 B N D a search) over the window's wall time at the
-    index width's peak, %."""
+    length, by its family's count, and 2 B N D a search) over the window's
+    wall time at the index width's peak, %."""
     if run.kind != kind or not run.calls or run.trace is None:
         return None
     idx = run.config["index"]
-    ops = sum(peaks.minilm_flops(n, run.config["model"]) for n in run.ref_lengths())
+    model = run.config["model"]
+    ops = sum(run.family.flops(n, model) for n in run.ref_lengths())
     if kind == "query":
         ops += sum(2.0 * c.items * idx["rows"] * idx["dim"] for c in run.calls)
     peak = peaks.PEAK_OPS_PER_S[peaks.CORPUS_WIDTH[idx["dtype"]]]

@@ -34,11 +34,3 @@ def search_work(b: int, n_rows: int, dim: int, k: int,
     width = CORPUS_WIDTH[index_dtype]
     n_bytes = n_rows * dim * WIDTH_BYTES[width] + b * dim * 4 + b * k * 12
     return n_bytes, 2.0 * b * n_rows * dim, PEAK_OPS_PER_S[width]
-
-
-def minilm_flops(tokens: int, model: dict) -> float:
-    """Operations of one text's encoder forward at its real length: the six
-    linears of each layer and the two attention products."""
-    h, f = model["hidden"], model["ffn"]
-    per_layer = 2 * tokens * (4 * h * h + 2 * h * f) + 4 * tokens * tokens * h
-    return float(model["layers"] * per_layer)

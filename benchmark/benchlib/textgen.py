@@ -1,58 +1,20 @@
-"""The one text generator: a seeded WordPiece vocabulary and pools of distinct
-texts whose word counts and word frequencies follow a configuration's corpus.
+"""The one text generator: pools of distinct texts whose word counts and word
+frequencies follow a configuration's corpus.
 
-Words are made-up syllable words ranked by a Zipf law; a share of them take
-a suffix that WordPiece splits off as a ``##`` piece, and passages carry
-commas and full stops, so a word is 1-1.3 tokens as in English. Word counts
-are the quantiles of a log-normal with the corpus's mean, the same set for
-every seed, in an order drawn from the seed.
+Words are the encoder family's made-up words (``words(model)``), ranked by
+a Zipf law; a share of them take one of the family's ``SUFFIXES``, which its
+vocabulary holds as pieces of their own, and passages carry commas and full
+stops, so a word is 1-1.3 tokens as in English. Word counts are the
+quantiles of a log-normal with the corpus's mean, the same set for every
+seed, in an order drawn from the seed.
 """
 
 from __future__ import annotations
 
-import string
-
 import numpy as np
 import torch
 
-SPECIALS = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
-            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])  # ids 0-103, as BERT's
-SUFFIXES = ("es", "ed", "ing", "er", "ers", "est", "ly", "ion", "ions", "ment", "ness",
-            "al", "ity", "ive", "able", "ful", "less", "ous", "ize", "ized")
 PUNCT = ("", ",", ".")
-_SYLLABLES = tuple(c + v for c in "bdfgklmnprstvz" for v in "aeiou")
-
-
-def vocabulary(size: int, seed: int) -> list[str]:
-    """BERT's special tokens at their ids, single characters, ``##`` pieces
-    (letters, digits, suffixes), then distinct made-up words of 2-4
-    syllables up to ``size`` entries. Every whole word is a run of
-    consonant-vowel syllables, so no word plus a suffix is another word."""
-    chars = list(string.ascii_lowercase + string.digits + string.punctuation)
-    pieces = [f"##{c}" for c in string.ascii_lowercase + string.digits]
-    pieces += [f"##{s}" for s in SUFFIXES]
-    vocab = SPECIALS + chars + pieces
-    taken = set(vocab)
-    rng = np.random.default_rng(seed)
-    while len(vocab) < size:
-        n = len(vocab)
-        draw = rng.integers(0, len(_SYLLABLES), size=(size - n, 4))
-        lens = rng.integers(2, 5, size=size - n)
-        for row, m in zip(draw, lens):
-            w = "".join(_SYLLABLES[j] for j in row[:m])
-            if w not in taken:
-                taken.add(w)
-                vocab.append(w)
-                if len(vocab) == size:
-                    break
-    return vocab
-
-
-def whole_words(vocab: list[str]) -> list[str]:
-    """The vocabulary's made-up words, most frequent first."""
-    first = len(SPECIALS) + len(string.ascii_lowercase + string.digits + string.punctuation)
-    first += len(string.ascii_lowercase + string.digits) + len(SUFFIXES)
-    return vocab[first:]
 
 
 def word_counts(n: int, mean: float, sigma: float, rng) -> np.ndarray:
@@ -65,17 +27,17 @@ def word_counts(n: int, mean: float, sigma: float, rng) -> np.ndarray:
 
 
 class TextMaker:
-    """Texts over one vocabulary's words; ``spec`` holds ``zipf_s``,
-    ``suffix_share`` and ``punct_share``."""
+    """Texts over one vocabulary's words and suffixes; ``spec`` holds
+    ``zipf_s``, ``suffix_share`` and ``punct_share``."""
 
-    def __init__(self, words: list[str], spec: dict):
+    def __init__(self, words: list[str], suffixes: tuple[str, ...], spec: dict):
         self.words = np.array(words, dtype=object)
         ranks = np.arange(1, len(words) + 1, dtype=np.float64)
         p = ranks ** -float(spec["zipf_s"])
         self.cdf = np.cumsum(p / p.sum())
         self.suffix_share = float(spec["suffix_share"])
         self.punct_share = float(spec.get("punct_share", 0.0))
-        self._suffixes = np.array(("",) + SUFFIXES, dtype=object)
+        self._suffixes = np.array(("",) + tuple(suffixes), dtype=object)
         self._punct = np.array(PUNCT, dtype=object)
         self._word_len = np.array([len(w) for w in words], dtype=np.int64)
         self._suffix_len = np.array([len(x) for x in self._suffixes], dtype=np.int64)
@@ -85,7 +47,7 @@ class TextMaker:
         """(n, 3) word ranks, suffix ids (0 none) and punctuation ids (0 none)."""
         word = np.minimum(np.searchsorted(self.cdf, rng.random(n)), len(self.words) - 1)
         suffix = np.where(rng.random(n) < self.suffix_share,
-                          rng.integers(1, len(SUFFIXES) + 1, n), 0)
+                          rng.integers(1, len(self._suffixes), n), 0)
         punct = np.where(rng.random(n) < self.punct_share, rng.integers(1, len(PUNCT), n), 0)
         return np.stack([word, suffix, punct], axis=1)
 

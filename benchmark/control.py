@@ -27,7 +27,8 @@ sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
 
 def control_numbers(config: dict, traffic: dict, seed: int, served: int, device) -> dict:
-    from benchlib import cell, check, inputs, textgen
+    from benchlib import cell, check
+    from benchlib import spec as spec_mod
 
     b = traffic["batch"]
     n = -(-served // b) * b
@@ -35,8 +36,9 @@ def control_numbers(config: dict, traffic: dict, seed: int, served: int, device)
     picks = check.sample(n, [len(t) for t in texts], traffic["check_random"],
                          traffic["check_longest"], seed)
     model = config["model"]
-    vocab = textgen.vocabulary(model["vocab_size"], model["vocab_seed"])
-    ref = check.Reference(config, vocab, inputs.minilm_params(seed, model, device), seed, device)
+    family = spec_mod.family(model["family"])
+    encoder = family.Reference(model, family.weights(seed, model, device), device)
+    ref = check.Reference(config, encoder, seed, device)
     picked = [texts[p] for p in picks]
     return check.numbers(check.control_outputs(picked, ref, traffic["kind"]), ref, traffic["kind"])
 

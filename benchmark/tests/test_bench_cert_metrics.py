@@ -74,3 +74,13 @@ def test_traced_cpu_run_of_the_int8_cell_reports_the_pass_share(monkeypatch):
     assert "k2_ms.query" not in metrics  # no card: no CUDA events
     assert totals["search.k2"]["count"] == len(run.calls)
     assert "search.k1" not in totals
+
+
+def test_the_int8_query_cell_reads_k2_and_not_k1():
+    """K1 runs in the int8 query cell only where a certificate fails, so
+    the cell reports K2 and the pass share, and leaves K1 to the f32 cells."""
+    spec = spec_mod.load_spec()
+    names = {m["name"] for m in spec_mod.metrics_for(spec, "per_layer", "msmarco-int8.query-b256")}
+    assert set(NAMES) <= names and "k1_ms.query" not in names
+    for cell in ("nq-f32.query-b256", "nq-f32.query-b1"):
+        assert "k1_ms.query" in {m["name"] for m in spec_mod.metrics_for(spec, "per_layer", cell)}

@@ -13,6 +13,9 @@ import sys
 sys.path[:0] = [{bench!r}, {root!r}]
 from benchlib import cell, check, guard, report, spec, trace
 import control
+s = spec.load_spec()
+for c in s["configs"]:
+    spec.family(spec.config(s, c["name"])["model"]["family"])
 import shodh_tpu_torch.models.embedder, shodh_tpu_torch.index.device_index
 assert guard.loaded() == [], guard.loaded()
 sys.modules["shodh_tpu.fake"] = object()

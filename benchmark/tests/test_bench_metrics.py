@@ -13,7 +13,7 @@ from benchlib import trace as trace_mod
 from benchlib.cell import Call, Run
 
 CONFIG = {"index": {"rows": 1_000_000, "dim": 384, "k": 10, "dtype": "float32"},
-          "model": {"hidden": 384, "ffn": 1536, "layers": 6, "max_tokens": 256,
+          "model": {"family": "minilm", "hidden": 384, "ffn": 1536, "layers": 6, "max_tokens": 256,
                     "vocab_size": 30522, "vocab_seed": 30522}}
 
 
@@ -22,7 +22,8 @@ def read(name, run):
 
 
 def query_run(latencies_ms, items=256, gap_ms=1.0):
-    run = Run(kind="query", config=CONFIG, traffic={}, setup_s=12.5)
+    run = Run(kind="query", config=CONFIG, traffic={}, setup_s=12.5,
+              family=spec_mod.family("minilm"))
     t = 0.0
     for ms in latencies_ms:
         run.calls.append(Call(t, t + ms / 2e3, t + ms / 1e3, items))
@@ -60,12 +61,13 @@ def test_roofline_counts_the_narrowest_copy_and_the_real_batch():
 
 
 def test_mfu_counts_the_encoder_at_real_lengths_and_the_search():
-    assert peaks.minilm_flops(10, CONFIG["model"]) == 6 * (2 * 10 * (4 * 384**2 + 2 * 384 * 1536)
-                                                          + 4 * 100 * 384)
+    flops = spec_mod.family("minilm").flops
+    assert flops(10, CONFIG["model"]) == 6 * (2 * 10 * (4 * 384**2 + 2 * 384 * 1536)
+                                              + 4 * 100 * 384)
     run = query_run([10.0, 10.0], items=2)
     run.trace = trace_mod.Trace(window_s=0.02, busy_s=0.01)
     run._ref_lengths = [5, 7, 9, 11]
-    ops = sum(peaks.minilm_flops(n, CONFIG["model"]) for n in (5, 7, 9, 11))
+    ops = sum(flops(n, CONFIG["model"]) for n in (5, 7, 9, 11))
     ops += 2 * 2 * 2.0 * 1_000_000 * 384
     assert read("step_mfu.query", run) == pytest.approx(100 * ops / (run.window_s * 989e12))
 

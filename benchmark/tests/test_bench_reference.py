@@ -9,12 +9,15 @@ import torch
 
 import bench_tiny  # noqa: F401
 from benchlib import check, inputs, textgen
+from benchlib import spec as spec_mod
 from reference import minilm as ref_minilm
 from reference import search as ref_search
 from reference.wordpiece import WordPiece
 from shodh_tpu_torch.index.device_index import DeviceVectorIndex
 from shodh_tpu_torch.models.embedder import MiniLMEmbedder
 from shodh_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+minilm = spec_mod.family("minilm")
 
 SEED = 2**33 + 5
 MODEL = {"vocab_size": 2000, "hidden": 384, "layers": 2, "heads": 6, "ffn": 1536,
@@ -23,16 +26,16 @@ MODEL = {"vocab_size": 2000, "hidden": 384, "layers": 2, "heads": 6, "ffn": 1536
 
 @pytest.fixture(scope="module")
 def checkpoint(tmp_path_factory):
-    vocab = textgen.vocabulary(MODEL["vocab_size"], MODEL["vocab_seed"])
-    params = inputs.minilm_params(SEED, MODEL, "cpu")
-    ckpt = inputs.write_checkpoint(tmp_path_factory.mktemp("ckpt"), params, vocab)
+    vocab = minilm.vocabulary(MODEL["vocab_size"], MODEL["vocab_seed"])
+    params = minilm.weights(SEED, MODEL, "cpu")
+    ckpt = minilm.write_checkpoint(tmp_path_factory.mktemp("ckpt"), params, vocab)
     return ckpt, vocab, params
 
 
 def texts(vocab, n=64, mean=12.0):
     rng = np.random.default_rng(7)
-    maker = textgen.TextMaker(textgen.whole_words(vocab), {"zipf_s": 1.0, "suffix_share": 0.2,
-                                                          "punct_share": 0.1})
+    maker = textgen.TextMaker(minilm.whole_words(vocab), minilm.SUFFIXES,
+                              {"zipf_s": 1.0, "suffix_share": 0.2, "punct_share": 0.1})
     return maker.texts(textgen.word_counts(n, mean, 0.5, rng), rng)
 
 

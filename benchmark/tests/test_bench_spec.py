@@ -40,9 +40,18 @@ def test_cell_resolves_to_its_config_and_traffic(w):
     assert traffic["kind"] in ("query", "ingest")
     assert traffic["text"] in config["texts"]
     assert set(config["limits"]) >= {"token_mismatch", "embed_max_abs"}
+    family = spec_mod.family(config["model"]["family"])
+    for part in ("words", "weights", "embedder", "Probe", "Reference", "flops"):
+        assert callable(getattr(family, part)), part
+    assert family.SUFFIXES and all(isinstance(x, str) and x for x in family.SUFFIXES)
     e2e = spec_mod.metrics_for(SPEC, "end_to_end", w["name"])
     assert "setup_s" in [m["name"] for m in e2e] and len(e2e) >= 2
     assert spec_mod.metrics_for(SPEC, "per_layer", w["name"])
+
+
+def test_an_unknown_family_is_refused_by_name():
+    with pytest.raises(KeyError, match="no encoder family named 'absent'"):
+        spec_mod.family("absent")
 
 
 @pytest.mark.parametrize("m", SPEC["end_to_end"] + SPEC["per_layer"], ids=lambda m: m["name"])

@@ -1,5 +1,6 @@
 """The text generator: distinct texts, the corpus's word-count means,
-reproducible from the seed, and words that tokenize as intended."""
+reproducible from the seed, and words that tokenize as intended under the
+MiniLM family's vocabulary."""
 
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import bench_tiny  # noqa: F401  (puts benchmark/ on the path)
 from benchlib import cell, inputs, textgen
 from benchlib import spec as spec_mod
 from reference.wordpiece import WordPiece
+
+minilm = spec_mod.family("minilm")
 
 SEED = 3_000_000_017  # past 32 signed bits, as the driver's seeds are
 
@@ -55,11 +58,11 @@ def test_warm_up_holds_the_longest_word_counts():
 
 
 def test_words_tokenize_to_one_piece_and_a_suffix_to_two():
-    vocab = textgen.vocabulary(30522, 30522)
+    vocab = minilm.vocabulary(30522, 30522)
     assert len(vocab) == len(set(vocab)) == 30522
     assert vocab[:4] == ["[PAD]", "[unused0]", "[unused1]", "[unused2]"]
     wp = WordPiece(vocab)
-    for w in textgen.whole_words(vocab)[:200]:
+    for w in minilm.whole_words(vocab)[:200]:
         assert len(wp.pieces(w)) == 1
         assert len(wp.pieces(w + "ing")) == 2
 
